@@ -1,0 +1,140 @@
+"""The CLIPPER solve on a prepared affinity: CUDA kernel and plain twin.
+
+Replaces roman_tpu/align/clipper_pallas.py:50 ``_solve_kernel`` (K2), and
+is also the solve phase of roman_tpu/align/fused_register.py:111
+``_kernel`` (K1). On a prepared (P, N, N) bf16 M and a (P, N) f32 valid
+mask it runs, per pair:
+
+- warmup  u <- normalize((Mu + u) * valid)   from u0 = normalize(valid + 1e-3);
+- R > 1:  restart r blends the warmed start toward ``restart_noise`` row r,
+          u_r = normalize((u (1 - r/R) + max(u) (r/R) z_r) * valid); row 0
+          keeps the warmed start;
+- homotopy u <- normalize(max(Mu - d Cb u, 0) * valid), Cb u = rowsum +
+          colsum - 2u, with d += sum_viol Mu / sum_viol Cb u (+1e-3 while
+          violations remain);
+- the restart with the best feasible omega = u'Mu wins (lowest index on a
+  tie); returns u, d, F = u'(M - d Cb)u and omega.
+
+Every matvec is u @ M, out[j] = sum_i u_i M[i, j], with u rounded to bf16
+and products summed in f32, as both TPU kernels compute it. The fused
+affinity is not bitwise symmetric, so the orientation matters.
+
+The kernel is ``csrc/clipper_solve.cu``; the wrapper ``clipper_solve``
+launches it for CUDA tensors and runs ``clipper_solve_plain`` only for CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from roman_tpu_torch.align.clipper import ClipperSolveParams, restart_noise
+from roman_tpu_torch.kernels import build
+
+_EPS = 1e-9
+MAX_RESTARTS = 8  # kernel instantiations: R = 1..8 restart rows
+
+
+def clipper_solve_plain(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
+                        params: ClipperSolveParams = ClipperSolveParams()):
+    """Plain PyTorch twin of the kernel on any device.
+
+    M (P, N, N) bf16, valid (P, N) f32. Returns u (P, N), d (P,), F (P,),
+    omega (P,), all f32.
+    """
+    P, N, _ = M.shape
+    R = params.n_restarts
+    dev = M.device
+    Mf = M.float()
+    v = valid.to(torch.float32)[:, None, :]  # (P, 1, N)
+
+    def matvec(U):  # (P, r, N) -> (P, r, N): exact bf16 x bf16, f32 sums
+        return torch.bmm(U.to(torch.bfloat16).float(), Mf)
+
+    def cb_matvec(U):
+        Um = U.reshape(P, -1, n, m)
+        rs = torch.sum(Um, dim=-1, keepdim=True)
+        cs = torch.sum(Um, dim=-2, keepdim=True)
+        return (rs + cs).reshape(P, -1, N) - 2.0 * U
+
+    def normalize(U):
+        nrm = torch.sqrt(torch.sum(U * U, dim=-1, keepdim=True))
+        return U / torch.clamp(nrm, min=_EPS)
+
+    U = normalize(v + 1e-3)
+    for _ in range(params.warmup_iters):
+        U = normalize((matvec(U) + U) * v)
+    if R > 1:
+        noise = torch.as_tensor(restart_noise(R, N), device=dev)[None]
+        a = (torch.arange(R, dtype=torch.float32, device=dev) / R)[None, :, None]
+        umax = torch.amax(U, dim=-1, keepdim=True)
+        pert = normalize((U * (1.0 - a) + umax * a * noise) * v)
+        U = torch.where(a == 0.0, U, pert)
+    d = torch.zeros((P, R, 1), dtype=torch.float32, device=dev)
+    for _ in range(params.outer_iters):
+        for _ in range(params.inner_iters):
+            g = matvec(U) - d * cb_matvec(U)
+            Un = torch.clamp(g, min=0.0) * v
+            nrm = torch.sqrt(torch.sum(Un * Un, dim=-1, keepdim=True))
+            U = torch.where(nrm > _EPS, Un / torch.clamp(nrm, min=_EPS), U)
+        Mu = matvec(U)
+        Cbu = cb_matvec(U)
+        viol = (U > params.active_eps) & (Cbu > params.active_eps)
+        num = torch.sum(torch.where(viol, Mu, 0.0), dim=-1, keepdim=True)
+        den = torch.sum(torch.where(viol, Cbu, 0.0), dim=-1, keepdim=True)
+        delta = torch.where(den > _EPS, num / torch.clamp(den, min=_EPS), 0.0)
+        d = d + delta + torch.where(torch.any(viol, dim=-1, keepdim=True), 1e-3, 0.0)
+    Mu = matvec(U)
+    Cbu = cb_matvec(U)
+    F = torch.sum(U * (Mu - d * Cbu), dim=-1)  # (P, R)
+    omega = torch.sum(U * Mu, dim=-1)
+    best = torch.zeros(P, dtype=torch.long, device=dev)
+    if R > 1:
+        anyviol = torch.any((U > params.active_eps) & (Cbu > params.active_eps), dim=-1)
+        score = omega - torch.where(anyviol, 1e30, 0.0)
+        best = torch.argmax(score, dim=-1)  # first maximum: restart 0 wins ties
+    rows = torch.arange(P, device=dev)
+    return U[rows, best], d[rows, best, 0], F[rows, best], omega[rows, best]
+
+
+def clipper_solve(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
+                  params: ClipperSolveParams = ClipperSolveParams()):
+    """CLIPPER solve of every pair: launches the CUDA kernel for CUDA
+    tensors, runs the plain twin for CPU tensors.
+
+    M (P, N, N) bf16 contiguous, valid (P, N) f32 contiguous, N = n*m.
+    Returns u (P, N), d (P,), F (P,), omega (P,).
+    """
+    if M.device.type == "cpu":
+        return clipper_solve_plain(M, valid, n, m, params)
+    P, N = M.shape[0], n * m
+    dev = M.device
+    build.check_tensor("M", M, (P, N, N), torch.bfloat16, dev)
+    build.check_tensor("valid", valid, (P, N), torch.float32, dev)
+    R = params.n_restarts
+    if not 1 <= R <= MAX_RESTARTS:
+        raise ValueError(f"n_restarts must be in [1, {MAX_RESTARTS}], got {R}")
+    noise = torch.as_tensor(restart_noise(R, N), device=dev)
+    u = torch.empty((P, N), dtype=torch.float32, device=dev)
+    d = torch.empty(P, dtype=torch.float32, device=dev)
+    F = torch.empty(P, dtype=torch.float32, device=dev)
+    omega = torch.empty(P, dtype=torch.float32, device=dev)
+    if P == 0:
+        return u, d, F, omega
+    fn = build.function("clipper_solve", "clipper_solve_launch",
+                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                        + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(M.data_ptr(), valid.data_ptr(), noise.data_ptr(),
+                 u.data_ptr(), d.data_ptr(), F.data_ptr(), omega.data_ptr(),
+                 P, N, n, m, R, params.warmup_iters, params.outer_iters,
+                 params.inner_iters, params.active_eps,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check_launch("clipper_solve", err)
+    clipper_solve.launches += 1
+    return u, d, F, omega
+
+
+clipper_solve.launches = 0

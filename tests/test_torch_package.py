@@ -1,0 +1,180 @@
+"""Package rules of the PyTorch port, on the CPU.
+
+- roman_tpu_torch imports neither jax nor anything of roman_tpu: checked by
+  importing every module in a fresh interpreter where both are blocked,
+  and by a scan of every import statement of the package and of
+  chip_smoke.py;
+- entry points run on cuda unless asked for the CPU, and raise on a host
+  without a card;
+- a kernel wrapper runs its plain twin only for CPU tensors: for any other
+  device it checks its inputs and launches its kernel, and raises when the
+  launch fails, without counting it.
+"""
+
+import ast
+import contextlib
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from roman_tpu_torch import convert, device
+from roman_tpu_torch.align import fused_register as tfr
+from roman_tpu_torch.align.clipper import ClipperSolveParams
+from roman_tpu_torch.align.clipper_solve import clipper_solve
+from roman_tpu_torch.align.registration import RegistrationConfig
+from roman_tpu_torch.align.submap_align import PairGridRegistrar, submap_align
+from roman_tpu_torch.kernels import build
+from roman_tpu_torch.params.submap_align_params import (SubmapAlignInputOutput,
+                                                        SubmapAlignParams)
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "roman_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "flax", "roman_tpu")
+
+
+def _blocked(module: str) -> bool:
+    return module.split(".")[0] in BLOCKED
+
+
+def test_every_module_imports_with_jax_and_roman_tpu_blocked():
+    modules = sorted(
+        "roman_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    code = (
+        "import sys\n"
+        f"blocked = {BLOCKED!r}\n"
+        "for name in list(sys.modules):\n"
+        "    if name.split('.')[0] in blocked:\n"
+        "        del sys.modules[name]\n"
+        "for name in blocked:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        "import roman_tpu_torch\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "leaked = [m for m in sys.modules if m.split('.')[0] in blocked\n"
+        "          and sys.modules[m] is not None]\n"
+        "assert not leaked, leaked\n"
+        "print('imported', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "imported" in out.stdout
+
+
+def test_no_file_imports_jax_or_roman_tpu():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert not _blocked(name), f"{path.relative_to(ROOT)} imports {name}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_without_device_raise_on_a_host_without_a_card(no_card, tmp_path):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PairGridRegistrar(RegistrationConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.features_from_numpy(np.zeros((2, 3)), np.zeros((2, 4)),
+                                    np.zeros((2, 8)), np.ones(2, bool))
+    io = SubmapAlignInputOutput(inputs=["a.pkl", "b.pkl"],
+                                output_dir=str(tmp_path), run_name="align")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        submap_align(SubmapAlignParams(), io)
+    assert not any(tmp_path.iterdir())
+    assert device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.fixture
+def failing_launch(monkeypatch):
+    """Kernel launchers that report a CUDA error, so no compiler or card is
+    needed to see what a wrapper does with a non-CPU tensor."""
+    calls = []
+
+    def function(lib, name, argtypes):
+        def fn(*args):
+            calls.append((lib, name, len(args), len(argtypes)))
+            return 98  # cudaErrorInvalidDeviceFunction
+        return fn
+
+    monkeypatch.setattr(build, "function", function)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+def test_wrappers_launch_for_non_cpu_tensors_and_raise_on_a_failed_launch(
+        failing_launch):
+    P, n, m, F, D = 2, 4, 3, 4, 8
+    N = n * m
+    inv = tfr.FusedInvariantStatics()
+    before = [k.launches for k in tfr.KERNELS]
+    cases = [
+        (tfr.assoc_terms, (_meta(P, n, F), _meta(P, n, D), _meta(P, m, F),
+                           _meta(P, m, D), _meta(P, n, m), inv)),
+        (tfr.build_affinity, (_meta(P, n, 3), _meta(P, m, 3), _meta(P, 2, N),
+                              _meta(P, 2, N), _meta(P, N), _meta(P, N), inv)),
+        (clipper_solve, (_meta(P, N, N, dtype=torch.bfloat16), _meta(P, N),
+                         n, m, ClipperSolveParams())),
+        (tfr.round_refine, (_meta(P, N, N, dtype=torch.bfloat16), _meta(P, N),
+                            _meta(P), _meta(P), n, m, inv)),
+    ]
+    for wrapper, args in cases:
+        with pytest.raises(RuntimeError, match=f"{wrapper.__name__}: CUDA launch failed"):
+            wrapper(*args)
+    assert [c[1] for c in failing_launch] == [
+        "assoc_terms_launch", "build_affinity_launch", "clipper_solve_launch",
+        "round_refine_launch"]
+    assert all(n_args == n_types for _, _, n_args, n_types in failing_launch)
+    assert [k.launches for k in tfr.KERNELS] == before
+
+
+def test_wrappers_check_their_inputs(failing_launch):
+    P, n, m = 2, 4, 3
+    N = n * m
+    M = _meta(P, N, N, dtype=torch.bfloat16)
+    bad = [
+        (M.float(), _meta(P, N)),                       # wrong dtype
+        (M, _meta(P, N + 1)),                           # wrong shape
+        (M, _meta(N, P).t()),                           # not contiguous
+    ]
+    for Mx, valid in bad:
+        with pytest.raises(ValueError):
+            clipper_solve(Mx, valid, n, m)
+    with pytest.raises(ValueError, match="n_restarts"):
+        clipper_solve(M, _meta(P, N), n, m, ClipperSolveParams(n_restarts=9))
+    assert failing_launch == []
