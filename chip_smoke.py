@@ -16,13 +16,17 @@ N = 1600 candidate associations each), and then:
    memory and spills of every kernel);
 2. holds each of the four kernels against its plain PyTorch twin on the
    card, on 32 pairs (the chunk the main path registers at once), and
-   times both with CUDA events;
+   times both with CUDA events; holds and times the CLIPPER solve also on
+   1 and 8 pairs and at the rescue budget (pairs, blocks per pair, GB/s
+   of M streamed), beside a yardstick: one torch.bmm of bf16 u by M,
+   times the solve's matvec count;
 3. runs the alignment stage through its entry point ``submap_align`` from
    map pickles, with every launch count set to 0 just before and read just
    after, and checks the artifacts it writes;
 4. registers the full pair grid with ``PairGridRegistrar``: pairs/s (best
    of 3 after a warmup with the full pair list), launch counts, a
-   profile of device time by kernel, agreement with the plain path on the
+   profile of device time by kernel with the rescue launch's pairs and
+   device time, agreement with the plain path on the
    card over the first 100 pairs, and loop-closure precision/recall
    against the sim ground truth;
 5. registers 16 pairs with arithmetic-mean fusion, which reaches the
@@ -72,10 +76,11 @@ def ptxas_summary(log: str) -> list[str]:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            # Itanium-mangled: <length><name>, then I(Li<int>E)+E for the
-            # integer template arguments
-            k = re.search(r"\d+([a-z_]+_kernel)(?:I((?:Li\d+E)+)E)?", m.group(1))
-            args = re.findall(r"Li(\d+)E", k.group(2) or "") if k else []
+            # Itanium-mangled: <length><name>, then I(L<type><value>E)+E for
+            # the integer and bool template arguments
+            k = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
+            args = [{"b0": "false", "b1": "true"}.get(t + v, v)
+                    for t, v in re.findall(r"L([ib])(\d+)E", k.group(2) or "")] if k else []
             name = (k.group(1) + (f"<{', '.join(args)}>" if args else "")
                     if k else m.group(1))
             spill = ""
@@ -261,7 +266,10 @@ def check_kernels(feats, auxs, cfg, reps=10, plain_reps=3):
 
     from roman_tpu_torch.align import clipper
     from roman_tpu_torch.align import fused_register as fr
-    from roman_tpu_torch.align.clipper_solve import clipper_solve, clipper_solve_plain
+    from roman_tpu_torch.align.clipper_solve import (clipper_solve,
+                                                     clipper_solve_plain,
+                                                     cluster_size)
+    from roman_tpu_torch.align.registration import rescue_solver
 
     pi, pj = kernel_pairs(auxs)
     dev = feats[0].centers.device
@@ -320,22 +328,44 @@ def check_kernels(feats, auxs, cfg, reps=10, plain_reps=3):
         bound=bound(nbytes(*b_args[:6], M_k), f32_ops=50.0 * P * N * N)))
     del M_k
 
-    # ---- clipper_solve (both on the twin's affinity) ----
-    s_k = clipper_solve(M_p, vflat_p, n, m, params)
-    s_p = clipper_solve_plain(M_p, vflat_p, n, m, params)
-    torch.cuda.synchronize()
-    du = (s_k[0] - s_p[0]).abs().max().item()
-    rel = [((a - b).abs() / b.abs().clamp(min=1e-6)).max().item()
-           for a, b in zip(s_k[1:], s_p[1:])]
-    print(f"clipper_solve: max |du| {du:.3e} (tol 2e-3); max rel d, F, omega "
-          f"{rel[0]:.3e} {rel[1]:.3e} {rel[2]:.3e} (tol 1e-3)", flush=True)
-    require(du <= 2e-3 and max(rel) <= 1e-3, "clipper_solve disagrees with its twin")
+    # ---- clipper_solve (both on the twin's affinity), on the main path's
+    # chunk, on 1 and 8 pairs, and at the rescue budget ----
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for Pc, prm, what in ((P, params, "default budget"), (1, params, "default budget"),
+                          (8, params, "default budget"),
+                          (8, rescue_solver(params), "rescue budget")):
+        Mc, vc = M_p[:Pc].contiguous(), vflat_p[:Pc].contiguous()
+        s_k = clipper_solve(Mc, vc, n, m, prm)
+        s_p = clipper_solve_plain(Mc, vc, n, m, prm)
+        torch.cuda.synchronize()
+        du = (s_k[0] - s_p[0]).abs().max().item()
+        rel = [((a - b).abs() / b.abs().clamp(min=1e-6)).max().item()
+               for a, b in zip(s_k[1:], s_p[1:])]
+        require(du <= 2e-3 and max(rel) <= 1e-3,
+                f"clipper_solve disagrees with its twin on {Pc} pairs, {what}")
+        passes = prm.warmup_iters + prm.outer_iters * (prm.inner_iters + 1) + 1
+        C = cluster_size(Pc, sms)
+        ms = cuda_ms(lambda: clipper_solve(Mc, vc, n, m, prm), reps)
+        print(f"clipper_solve, {Pc} pairs, {what} ({passes} matvecs): {C} blocks "
+              f"a pair, {Pc * C} blocks, {ms:.4f} ms, "
+              f"{passes * nbytes(Mc) / ms / 1e6:.1f} GB/s of M streamed; max |du| "
+              f"{du:.3e} (tol 2e-3), max rel d, F, omega {rel[0]:.3e} {rel[1]:.3e} "
+              f"{rel[2]:.3e} (tol 1e-3)", flush=True)
+        if Pc == P and prm is params:
+            s_main, p_main, du_main, ms_main = s_k, s_p, du, ms
+    s_k, s_p = s_main, p_main
     R = params.n_restarts
     n_iter = params.outer_iters * (params.inner_iters + 1) + 1
     matvec_rows = params.warmup_iters + R * n_iter
+    # yardstick, not a port of the solve: how fast a library call streams
+    # the same bytes, one bmm of bf16 u by M per matvec
+    ub = torch.rand((P, 1, N), device=dev).to(torch.bfloat16)
+    bmm_ms = cuda_ms(lambda: torch.bmm(ub, M_p), reps)
+    print(f"yardstick: torch.bmm of bf16 u ({P}, 1, {N}) by M ({P}, {N}, {N}) "
+          f"{bmm_ms:.4f} ms, x {matvec_rows} matvecs = {bmm_ms * matvec_rows:.4f} ms "
+          f"({nbytes(M_p) / bmm_ms / 1e6:.1f} GB/s)", flush=True)
     records.append(dict(
-        name="clipper_solve", max_abs_err=du,
-        ms=cuda_ms(lambda: clipper_solve(M_p, vflat_p, n, m, params), reps),
+        name="clipper_solve", max_abs_err=du_main, ms=ms_main,
         plain_ms=cuda_ms(lambda: clipper_solve_plain(M_p, vflat_p, n, m, params),
                          plain_reps),
         bound=bound(nbytes(M_p, vflat_p, *s_k),
@@ -449,9 +479,12 @@ def run_grid(feats, auxs, runs, cfg, repeats=3):
     P = len(pair_i)
     ids = [a["seg_ids"] for a in auxs]
 
+    regs = {}
+
     def register(chunk, pi=pair_i, pj=pair_j):
-        reg = PairGridRegistrar(cfg, chunk_size=chunk, device=feats[0].centers.device)
-        return reg(feats[0], feats[1], ids[0], ids[1], pi, pj)
+        regs[chunk] = PairGridRegistrar(cfg, chunk_size=chunk,
+                                        device=feats[0].centers.device)
+        return regs[chunk](feats[0], feats[1], ids[0], ids[1], pi, pj)
 
     register(KERNEL_PAIRS)  # warmup with the full pair list
     torch.cuda.synchronize()
@@ -496,6 +529,19 @@ def run_grid(feats, auxs, runs, cfg, repeats=3):
           flush=True)
     for key, ms, count in rows[:8]:
         print(f"  {ms:9.3f} ms  {count:5d}x  {key[:90]}", flush=True)
+    # the rescue pass launches the solve last, on the unconverged pairs
+    solves = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and "clipper_solve_kernel" in e.name),
+                    key=lambda e: e.time_range.start)
+    n_rescued = regs[KERNEL_PAIRS].rescued
+    if n_rescued and solves:
+        from roman_tpu_torch.align.clipper_solve import cluster_size
+        C = cluster_size(n_rescued, torch.cuda.get_device_properties(0).multi_processor_count)
+        print(f"rescue launch: {n_rescued} pairs ({C} blocks a pair), clipper_solve "
+              f"{solves[-1].self_device_time_total / 1e3:.3f} ms of device time; "
+              f"the other {len(solves) - 1} solve launches "
+              f"{sum(e.self_device_time_total for e in solves[:-1]) / 1e3:.3f} ms",
+              flush=True)
 
     # the kernels against the plain path on the card, first 100 pairs
     q = min(QUALITY_PAIRS, P)

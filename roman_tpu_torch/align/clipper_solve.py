@@ -21,7 +21,8 @@ affinity is not bitwise symmetric, so the orientation matters.
 
 The kernel is ``csrc/clipper_solve.cu``; the wrapper ``clipper_solve``
 launches it for CUDA tensors and runs ``clipper_solve_plain`` only for CPU
-tensors.
+tensors. The kernel solves each pair on a thread block cluster of
+``cluster_size(P, SMs)`` blocks, each streaming a slice of M's columns.
 """
 
 from __future__ import annotations
@@ -35,6 +36,17 @@ from roman_tpu_torch.kernels import build
 
 _EPS = 1e-9
 MAX_RESTARTS = 8  # kernel instantiations: R = 1..8 restart rows
+MAX_CLUSTER = 8   # the largest portable thread block cluster
+
+
+def cluster_size(P: int, sms: int) -> int:
+    """Blocks per pair for a launch of P pairs on a card with `sms` SMs:
+    the largest power of two C <= MAX_CLUSTER with P * C <= sms, and 1
+    when P alone passes sms (the launch then runs in waves)."""
+    C = MAX_CLUSTER
+    while C > 1 and P * C > sms:
+        C //= 2
+    return C
 
 
 def clipper_solve_plain(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
@@ -123,14 +135,15 @@ def clipper_solve(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
     omega = torch.empty(P, dtype=torch.float32, device=dev)
     if P == 0:
         return u, d, F, omega
+    C = cluster_size(P, torch.cuda.get_device_properties(dev).multi_processor_count)
     fn = build.function("clipper_solve", "clipper_solve_launch",
-                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(dev):
         err = fn(M.data_ptr(), valid.data_ptr(), noise.data_ptr(),
                  u.data_ptr(), d.data_ptr(), F.data_ptr(), omega.data_ptr(),
                  P, N, n, m, R, params.warmup_iters, params.outer_iters,
-                 params.inner_iters, params.active_eps,
+                 params.inner_iters, C, params.active_eps,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("clipper_solve", err)
     clipper_solve.launches += 1

@@ -72,6 +72,7 @@ class PairGridRegistrar:
         self.single_robot_lc = single_robot_lc
         self.chunk_size = chunk_size
         self.device = resolve_device(device)
+        self.rescued = 0  # pairs the last call re-solved at rescue budget
 
     def _register(self, f1: SubmapFeatures, f2: SubmapFeatures, ids1, ids2,
                   cfg: RegistrationConfig) -> RegistrationResult:
@@ -127,6 +128,7 @@ class PairGridRegistrar:
         res = self._run(feats1, feats2, ids1_all, ids2_all, pair_i, pair_j,
                         self.cfg, times)
         bad = np.flatnonzero(~res.converged.cpu().numpy())
+        self.rescued = int(bad.size)
         if bad.size:
             rcfg = dataclasses.replace(self.cfg,
                                        solver=reg.rescue_solver(self.cfg.solver))

@@ -1,4 +1,5 @@
-// CLIPPER solve on a prepared bf16 affinity, one thread block per pair.
+// CLIPPER solve on a prepared bf16 affinity, one pair per thread block
+// cluster.
 //
 // Replaces roman_tpu/align/clipper_pallas.py:50 `_solve_kernel` (K2) and
 // the solve phase of roman_tpu/align/fused_register.py:111 `_kernel` (K1):
@@ -8,92 +9,136 @@
 // best feasible restart. Semantics: roman_tpu_torch/align/clipper_solve.py
 // (`clipper_solve_plain` is the twin this kernel is tested against).
 //
-// What bounds it on an H100: memory. Every matvec u @ M streams the pair's
+// What bounds it on an H100: bytes. Every matvec u @ M streams the pair's
 // (N, N) bf16 matrix once (5.12 MB at N = 1600), and one solve does
-// warmup + outer * (inner + 1) + 1 = 51 of them at the default budget.
-// The TPU kernel kept M in 128 MB of VMEM; an SM has 227 KB of shared
-// memory, so here M stays in HBM/L2 and is read coalesced: a thread owns
-// four neighbouring columns (one 8-byte load per row), a warp reads 256
-// bytes of a row, and each thread keeps four rows of loads in flight.
-// All R restart rows ride one pass over M (R accumulators per column), as
-// the TPU kernels let them ride one MXU pass. u, its bf16 rounding, the
-// matvec result, the valid mask and the row/column sums live in shared
-// memory. Keeping M resident or tiling it with TMA/wgmma is later work.
+// warmup + outer * (inner + 1) + 1 = 51 of them at the default budget:
+// 261 MB a pair, 8.4 GB for a chunk of 32 pairs, which no cache on the card
+// holds. All R restart rows ride one pass over M (R accumulators a column),
+// as the TPU kernels let them ride one MXU pass, so the work stays at most
+// 2R operations per 2 bytes and the tensor cores would not help.
+//
+// What the design does about it: every SM streams. A pair is solved by a
+// cluster of C blocks (C from the wrapper: the largest power of two <= 8
+// with P * C <= SMs), and block `rank` owns a slice of columns of u @ M, a
+// multiple of 8 columns wide (the last slice is ragged). It streams only
+// its slice, N rows of N / C columns (1.28 MB at C = 4), through a ring of
+// shared-memory stages of up to 128 rows that one thread keeps filled with
+// asynchronous bulk tensor copies (TMA boxes of at most 256 columns),
+// their arrival reported to an mbarrier a stage: 100-200 KB in flight an
+// SM, where 16-byte register loads kept about 32 KB. Where a row of M is
+// not 16-byte aligned, or two stages do not fit, threads load M into
+// registers instead, one column a thread. Inside a block a thread owns neighbouring columns and one of S
+// row segments (rows i = s mod S); each segment sums its columns in row
+// order and the segments are added in segment order, so u is bitwise the
+// same from run to run and depends on the other pairs of the launch only
+// through C.
+//
+// The homotopy step is elementwise on the slice. What it needs of the
+// whole pair travels through distributed shared memory: each block sends
+// its partial sums (the norm, the d-update's num/den/violations, F and
+// omega) into every block of its cluster, and every block adds the C
+// partials in rank order, so all blocks hold the same value. Each block
+// then writes its slice of the new u into every block, and after
+// `cluster.sync()` every block holds the full u for the next matvec and for
+// the row and column sums of Cb u, which it computes itself.
 //
 // Numerics: u is rounded to bf16 before every matvec (as the TPU kernels
-// do), products are exact bf16 x bf16 and sums run in f32 in row order.
-// Norms divide by max(||u||, 1e-9); all-invalid pairs give u = 0 without
-// NaN.
+// do); a bf16 x bf16 product is exact in f32, so the matvec's fused
+// multiply-add rounds as a product and a sum would. Norms divide by
+// max(||u||, 1e-9); all-invalid pairs give u = 0 without NaN.
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
+
+#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;       // rows of M a thread has in flight (register loads)
+constexpr int kMaxCluster = 8;   // the largest portable cluster
+constexpr int kMaxRestarts = 8;
+constexpr int kMaxSums = 3 * kMaxRestarts;  // values one exchange carries
 
-constexpr int kUnroll = 4;  // rows of M each thread has in flight
+// Per-block scratch besides the vectors in dynamic shared memory.
+struct Scratch {
+  float red[kMaxSums][kWarps];               // per-warp partials
+  float xch[2][kMaxCluster][kMaxSums];       // every rank's partials, by parity
+  float tot[kMaxSums];                       // the cluster-wide sums
+  float d[kMaxRestarts];
+};
 
-// VEC neighbouring bf16 entries of one row of M, as floats. VEC = 4 is one
-// 8-byte load and needs an 8-byte aligned address; a bf16 is the high half
-// of the float it widens to, so the conversion is a shift or a mask.
-template <int VEC>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* m) {
-  if constexpr (VEC == 4) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    m[0] = __uint_as_float(raw.x << 16);
-    m[1] = __uint_as_float(raw.x & 0xFFFF0000u);
-    m[2] = __uint_as_float(raw.y << 16);
-    m[3] = __uint_as_float(raw.y & 0xFFFF0000u);
-  } else {
+// Width of a block's column slice: N / C rounded up to 8 columns.
+__host__ __device__ inline int slice_width(int N, int C) {
+  return ((N + C - 1) / C + 7) / 8 * 8;
+}
+
+// Eight bf16 as floats: a bf16 is the high half of the float it widens
+// to, so the conversion is a shift or a mask.
+__device__ __forceinline__ void widen8(const uint4 raw, float* m) {
+  const uint32_t x[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) m[v] = __bfloat162float(p[v]);
+  for (int k = 0; k < 4; ++k) {
+    m[2 * k] = __uint_as_float(x[k] << 16);
+    m[2 * k + 1] = __uint_as_float(x[k] & 0xFFFF0000u);
   }
 }
 
-// out[r*N + j] = sum_i ub[r*N + i] * M[i*N + j] for ROWS rows. A thread owns
-// VEC neighbouring columns and sums each in row order i = 0..N-1, so the
-// result does not depend on VEC; kUnroll rows of loads are issued before
-// their products are added.
-template <int ROWS, int VEC>
+// The register-load matvec, for rows of M that are not 16-byte aligned
+// or slices too wide for the ring: w[r*Wp + jj] = sum_i ub[r*N + i] *
+// M[i*N + c0 + jj] for the block's columns jj < width, one column a
+// thread. With fewer columns than threads the block splits the rows into
+// S = kThreads / width segments (rows i = s mod S), each summed in row
+// order, and adds the segments into w in segment order.
+template <int R>
 __device__ void matvec(const __nv_bfloat16* __restrict__ M,
-                       const float* __restrict__ ub, float* __restrict__ out,
-                       int N) {
-  for (int j = threadIdx.x * VEC; j < N; j += blockDim.x * VEC) {
-    float acc[ROWS][VEC];
+                       const float* __restrict__ ub, float* __restrict__ w,
+                       int N, int c0, int width, int Wp) {
+  const int S = (width == 0 || width >= kThreads) ? 1 : kThreads / width;
+  const int s = S == 1 ? 0 : threadIdx.x / width;
+  const int j0 = S == 1 ? threadIdx.x : threadIdx.x % width;
+  float acc[R];
+  for (int jj = j0; jj < width && s < S; jj += (S == 1 ? kThreads : width)) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r)
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    const __nv_bfloat16* col = M + c0 + jj;
+    int i = s;
+    for (; i + (kUnroll - 1) * S < N; i += kUnroll * S) {
+      float mv[kUnroll];
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
-    const __nv_bfloat16* col = M + j;
-    int i = 0;
-    for (; i + kUnroll <= N; i += kUnroll) {
-      float mv[kUnroll][VEC];
+      for (int q = 0; q < kUnroll; ++q) mv[q] = __bfloat162float(col[(size_t)(i + q * S) * N]);
 #pragma unroll
-      for (int q = 0; q < kUnroll; ++q) load_row<VEC>(col + (size_t)(i + q) * N, mv[q]);
+      for (int q = 0; q < kUnroll; ++q)
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float* u = ub + r * N + i;
-#pragma unroll
-        for (int q = 0; q < kUnroll; ++q)
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) acc[r][v] = acc[r][v] + u[q] * mv[q][v];
-      }
+        for (int r = 0; r < R; ++r) acc[r] = __fmaf_rn(ub[r * N + i + q * S], mv[q], acc[r]);
     }
-    for (; i < N; ++i) {
-      float mv[VEC];
-      load_row<VEC>(col + (size_t)i * N, mv);
+    for (; i < N; i += S) {
+      const float mv = __bfloat162float(col[(size_t)i * N]);
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[r][v] = acc[r][v] + ub[r * N + i] * mv[v];
+      for (int r = 0; r < R; ++r) acc[r] = __fmaf_rn(ub[r * N + i], mv, acc[r]);
     }
+    if (S == 1)
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) out[r * N + j + v] = acc[r][v];
+      for (int r = 0; r < R; ++r) w[r * Wp + jj] = acc[r];
   }
-  __syncthreads();  // callers read out with another thread-to-column map
+  if (S > 1) {
+    // one column a thread: add the segments into w in segment order
+    const bool mine = j0 < width && s < S;
+    for (int q = 0; q < S; ++q) {
+      if (mine && s == q)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          w[r * Wp + j0] = q == 0 ? acc[r] : w[r * Wp + j0] + acc[r];
+      __syncthreads();
+    }
+  } else {
+    __syncthreads();
+  }
 }
 
 __device__ void round_bf16(const float* __restrict__ u, float* __restrict__ ub,
@@ -122,60 +167,321 @@ __device__ void row_col_sums(const float* __restrict__ u, float* rs, float* cs,
   }
 }
 
-// u[row] <- w[row] / max(||w[row]||, eps); with keep_if_zero, rows whose
-// norm is <= eps keep their old u (the homotopy's projection rule).
-__device__ void normalize_rows(const float* __restrict__ w, float* __restrict__ u,
-                               int rows, int N, bool keep_if_zero, float* red) {
+// dst[row] <- src[row] / max(||src[row]||, eps) over all N entries. Every
+// block of the cluster runs it on the same data with the same reduction
+// tree, so all blocks get the same result without an exchange.
+__device__ void normalize_full(const float* __restrict__ src, float* __restrict__ dst,
+                               int rows, int N, float* red) {
   for (int r = 0; r < rows; ++r) {
     float s = 0.f;
-    for (int j = threadIdx.x; j < N; j += blockDim.x) s += w[r * N + j] * w[r * N + j];
-    const float nrm = sqrtf(roman::block_sum(s, red));
-    if (keep_if_zero && !(nrm > roman::kEps)) continue;
-    const float den = fmaxf(nrm, roman::kEps);
-    for (int j = threadIdx.x; j < N; j += blockDim.x) u[r * N + j] = w[r * N + j] / den;
+    for (int j = threadIdx.x; j < N; j += blockDim.x) s += src[r * N + j] * src[r * N + j];
+    const float den = fmaxf(sqrtf(roman::block_sum(s, red)), roman::kEps);
+    for (int j = threadIdx.x; j < N; j += blockDim.x) dst[r * N + j] = src[r * N + j] / den;
   }
   __syncthreads();
 }
 
-template <int R, int VEC>
-__global__ void __launch_bounds__(kThreads)
+// Sums K per-thread values v[k] over the cluster: over the block (warp
+// shuffles, then the warps in order), then each rank's partial is written
+// into slot [par][rank] of every rank, and after the cluster barrier every
+// rank adds the C partials in rank order into sc.tot[k]. The two parities
+// let a rank write the next exchange while another still reads this one.
+template <int K>
+__device__ void cluster_sums(cg::cluster_group& cluster, const float (&v)[K],
+                             Scratch& sc, int par) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float t = roman::warp_sum(v[k]);
+    if (lane == 0) sc.red[k][wid] = t;
+  }
+  __syncthreads();
+  const int C = cluster.num_blocks(), rank = cluster.block_rank();
+  if (threadIdx.x < K) {
+    float t = 0.f;
+    for (int q = 0; q < kWarps; ++q) t += sc.red[threadIdx.x][q];
+    for (int q = 0; q < C; ++q)
+      *cluster.map_shared_rank(&sc.xch[par][rank][threadIdx.x], q) = t;
+  }
+  cluster.sync();
+  if (threadIdx.x < K) {
+    float t = 0.f;
+    for (int q = 0; q < C; ++q) t += sc.xch[par][q][threadIdx.x];
+    sc.tot[threadIdx.x] = t;
+  }
+  __syncthreads();
+}
+
+// u[r][c0 + jj] <- w[r][jj] / max(sqrt(sq[r]), eps) in every block of the
+// cluster; with keep_if_zero, rows whose norm is <= eps keep their old u
+// (the homotopy's projection rule). Ends with the cluster barrier, after
+// which every block holds the full new u.
+template <int R>
+__device__ void scatter_u(cg::cluster_group& cluster, const float* __restrict__ w,
+                          float* u, const float* sq, int N, int c0, int width,
+                          int Wp, bool keep_if_zero) {
+  const int C = cluster.num_blocks();
+  for (int q = 0; q < C; ++q) {
+    float* uq = cluster.map_shared_rank(u, q);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float nrm = sqrtf(sq[r]);
+      if (keep_if_zero && !(nrm > roman::kEps)) continue;
+      const float den = fmaxf(nrm, roman::kEps);
+      for (int jj = threadIdx.x; jj < width; jj += kThreads)
+        uq[r * N + c0 + jj] = w[r * Wp + jj] / den;
+    }
+  }
+  cluster.sync();
+}
+
+// ---- the bulk-copy ring: M's slice streamed through shared memory ----
+//
+// The ring holds NS stages of T rows of the block's slice. A stage is nb
+// boxes of T rows x bc columns (bc <= 256, the largest box a tensor copy
+// takes), each filled by one cp.async.bulk.tensor from a tensor map of M
+// and reported to the stage's `full` mbarrier; boxes past M's last row or
+// column are filled with zeros and never read. Thread 0 fills; every warp
+// reports a consumed stage to its `empty` mbarrier, and thread 0 waits for
+// that before it refills the stage. Tiles are numbered over the whole
+// solve (tiles per matvec x matvecs), so the ring runs on into the next
+// matvec's first rows while the block exchanges and steps: M does not
+// change during the solve.
+constexpr int kMaxStages = 4;
+constexpr int kMaxBox = 256;
+
+struct Ring {
+  __nv_bfloat16* buf;      // NS stages of nb x T x bc bf16
+  uint64_t* full;          // NS mbarriers: the stage's bytes have landed
+  uint64_t* empty;         // NS mbarriers: every warp has read the stage
+  const CUtensorMap* map;  // M as (P, N, N), boxes of 1 x T x bc
+  int T, NS;               // rows a stage, stages
+  int bc, nb;              // columns a box, boxes a stage
+  int tiles;               // tiles a matvec: ceil(N / T)
+  int total;               // tiles of the whole solve
+  int next;                // the next tile to consume
+  int p;                   // the pair
+};
+
+// Columns a box for a slice Wp wide: as few boxes as the 256 limit allows,
+// a multiple of 8 columns (16 bytes) each.
+__host__ __device__ inline int box_width(int Wp) {
+  const int nb = (Wp + kMaxBox - 1) / kMaxBox;
+  return ((Wp + nb - 1) / nb + 7) / 8 * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// Fill tile k's stage: rows (k mod tiles) * T onward of the slice at c0.
+__device__ void ring_fill(const Ring& rg, int k, int c0) {
+  const int s = k % rg.NS;
+  const int row0 = (k % rg.tiles) * rg.T;
+  const uint32_t box_bytes = (uint32_t)rg.T * rg.bc * 2;
+  const uint32_t bar = smem_addr(&rg.full[s]);
+  const uint32_t dst = smem_addr(rg.buf + (size_t)s * rg.nb * rg.T * rg.bc);
+  // a box counts all its bytes, the zeros past the matrix's edge too
+  mbar_expect_tx(&rg.full[s], box_bytes * rg.nb);
+  for (int b = 0; b < rg.nb; ++b)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst + b * box_bytes),
+        "l"(reinterpret_cast<uint64_t>(rg.map)), "r"(c0 + b * rg.bc), "r"(row0),
+        "r"(rg.p), "r"(bar)
+        : "memory");
+}
+
+// The matvec on rows read from the ring. A thread owns 8 neighbouring
+// columns (one 16-byte shared load a row) and one of S = kThreads / G row
+// segments of the G groups of 8 columns (rows i = s mod S), each summed in
+// row order; the segments are added into w in segment order.
+template <int R>
+__device__ void matvec_ring(Ring& rg, const float* __restrict__ ub,
+                            float* __restrict__ w, int N, int c0, int width,
+                            int Wp) {
+  const int G = width / 8;  // <= kThreads, checked by the launcher
+  const int S = G >= kThreads ? 1 : kThreads / G;
+  const int s = threadIdx.x / G, g = threadIdx.x % G;
+  const bool mine = s < S;
+  // this thread's 8 columns in a stage: box jj / bc, column jj % bc
+  const int jj0 = g * 8;
+  const size_t col_off = (size_t)(jj0 / rg.bc) * rg.T * rg.bc + jj0 % rg.bc;
+  float acc[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) acc[r][v] = 0.f;
+  for (int t = 0; t < rg.tiles; ++t, ++rg.next) {
+    const int k = rg.next, st = k % rg.NS;
+    const uint32_t parity = (k / rg.NS) & 1;
+    const int row0 = t * rg.T, rows = min(rg.T, N - row0);
+    mbar_wait(&rg.full[st], parity);
+    if (mine) {
+      const __nv_bfloat16* tile = rg.buf + (size_t)st * rg.nb * rg.T * rg.bc + col_off;
+      // this segment's rows of the tile: i = s mod S, in row order
+      for (int i = row0 + (s - row0 % S + S) % S; i < row0 + rows; i += S) {
+        float mv[8];
+        widen8(*reinterpret_cast<const uint4*>(tile + (i - row0) * rg.bc), mv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float x = ub[r * N + i];
+#pragma unroll
+          for (int v = 0; v < 8; ++v) acc[r][v] = __fmaf_rn(x, mv[v], acc[r][v]);
+        }
+      }
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&rg.empty[st]);
+    if (threadIdx.x == 0 && k + rg.NS < rg.total) {
+      mbar_wait(&rg.empty[st], parity);
+      ring_fill(rg, k + rg.NS, c0);
+    }
+  }
+  // add the segments into w in segment order
+  for (int q = 0; q < S; ++q) {
+    if (mine && s == q)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int v = 0; v < 8; ++v) {
+          const int jj = g * 8 + v;
+          w[r * Wp + jj] = q == 0 ? acc[r][v] : w[r * Wp + jj] + acc[r][v];
+        }
+    __syncthreads();
+  }
+}
+
+template <int R, bool BULK>
+__device__ __forceinline__ void matvec_any(Ring& rg, const __nv_bfloat16* M,
+                                           const float* ub, float* w, int N,
+                                           int c0, int width, int Wp) {
+  if constexpr (BULK) {
+    if (width > 0)
+      matvec_ring<R>(rg, ub, w, N, c0, width, Wp);
+    else
+      __syncthreads();
+  } else {
+    matvec<R>(M, ub, w, N, c0, width, Wp);
+  }
+}
+
+template <int R, bool BULK>
+__global__ void __launch_bounds__(kThreads, 1)
 clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
                      const float* __restrict__ valid,
                      const float* __restrict__ noise,
                      float* __restrict__ u_out, float* __restrict__ d_out,
                      float* __restrict__ F_out, float* __restrict__ om_out,
                      int N, int n, int m, int warmup, int outer, int inner,
-                     float active_eps) {
-  extern __shared__ float smem[];
-  float* u = smem;            // R*N  current iterate, one row per restart
-  float* ub = u + R * N;      // R*N  bf16-rounded u (matvec operand)
-  float* w = ub + R * N;      // R*N  matvec result / projection scratch
-  float* v = w + R * N;       // N    valid mask
-  float* rs = v + N;          // R*n  row sums of u
-  float* cs = rs + R * n;     // R*m  column sums of u
-  __shared__ float red[33];
-  __shared__ float d[R], score[R], Fr[R], omr[R];
+                     float active_eps, int T, int NS,
+                     const __grid_constant__ CUtensorMap map) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = cluster.num_blocks(), rank = cluster.block_rank();
+  const int p = blockIdx.x / C;
+  const int Wp = slice_width(N, C);
+  const int c0 = min(N, rank * Wp);
+  const int width = min(N, c0 + Wp) - c0;
 
-  const int p = blockIdx.x;
+  extern __shared__ __align__(16) float smem[];
+  float* u = smem;            // R*N  current iterate, one row per restart
+  float* ub = u + R * N;      // R*N  bf16-rounded u (matvec operand), scratch
+  float* v = ub + R * N;      // N    valid mask
+  float* w = v + N;           // R*Wp matvec result on the slice
+  float* rs = w + R * Wp;     // R*n  row sums of u
+  float* cs = rs + R * n;     // R*m  column sums of u
+  __shared__ Scratch sc;
+  __shared__ uint64_t bars[2 * kMaxStages];
+  float* red = &sc.red[0][0];  // 33 floats for roman::block_sum / block_max
+  int par = 0;                 // parity of the next exchange
+
   const __nv_bfloat16* M = M_all + (size_t)p * N * N;
+  Ring rg{};
+  if constexpr (BULK) {
+    // the ring starts at the first 128-byte aligned shared address after
+    // cs (a box's alignment; dynamic shared memory follows the static)
+    char* after = reinterpret_cast<char*>(cs + R * m);
+    rg.buf = reinterpret_cast<__nv_bfloat16*>(after + (128 - smem_addr(after) % 128) % 128);
+    rg.full = bars;
+    rg.empty = bars + kMaxStages;
+    rg.T = T;
+    rg.NS = NS;
+    rg.map = &map;
+    rg.bc = box_width(Wp);
+    rg.nb = (Wp + rg.bc - 1) / rg.bc;
+    rg.p = p;
+    rg.tiles = (N + T - 1) / T;
+    rg.total = rg.tiles * (warmup + outer * (inner + 1) + 1);
+    if (width > 0 && threadIdx.x == 0) {
+      for (int k = 0; k < NS; ++k) {
+        mbar_init(&rg.full[k], 1);
+        mbar_init(&rg.empty[k], kWarps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (width > 0 && threadIdx.x == 0)
+      for (int k = 0; k < min(NS, rg.total); ++k) ring_fill(rg, k, c0);
+  }
   for (int j = threadIdx.x; j < N; j += blockDim.x) {
     v[j] = valid[(size_t)p * N + j];
-    w[j] = v[j] + 1e-3f;
+    ub[j] = v[j] + 1e-3f;
   }
   __syncthreads();
-  normalize_rows(w, u, 1, N, false, red);
+  normalize_full(ub, u, 1, N, red);
 
   // ---- warmup: u <- normalize((Mu + u) * valid), restart row 0 only ----
   for (int it = 0; it < warmup; ++it) {
     round_bf16(u, ub, N);
     __syncthreads();
-    matvec<1, VEC>(M, ub, w, N);
-    for (int j = threadIdx.x; j < N; j += blockDim.x) w[j] = (w[j] + u[j]) * v[j];
-    __syncthreads();
-    normalize_rows(w, u, 1, N, false, red);
+    matvec_any<1, BULK>(rg, M, ub, w, N, c0, width, Wp);
+    float sq[1] = {0.f};
+    for (int jj = threadIdx.x; jj < width; jj += kThreads) {
+      const int j = c0 + jj;
+      const float x = (w[jj] + u[j]) * v[j];
+      w[jj] = x;
+      sq[0] += x * x;
+    }
+    cluster_sums<1>(cluster, sq, sc, par);
+    par ^= 1;
+    scatter_u<1>(cluster, w, u, sc.tot, N, c0, width, Wp, false);
   }
 
-  // ---- restart expansion: row r blends toward restart_noise row r ----
+  // ---- restart expansion: row r blends toward restart_noise row r; every
+  // block computes all N entries, so no exchange is needed ----
   if (R > 1) {
     float mx = -INFINITY;
     for (int j = threadIdx.x; j < N; j += blockDim.x) mx = fmaxf(mx, u[j]);
@@ -183,141 +489,230 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
     for (int r = 1; r < R; ++r) {
       const float a = (float)r / (float)R;
       for (int j = threadIdx.x; j < N; j += blockDim.x)
-        w[r * N + j] = (u[j] * (1.f - a) + umax * a * noise[r * N + j]) * v[j];
+        ub[r * N + j] = (u[j] * (1.f - a) + umax * a * noise[r * N + j]) * v[j];
     }
     __syncthreads();
-    normalize_rows(w + N, u + N, R - 1, N, false, red);
+    normalize_full(ub + N, u + N, R - 1, N, red);
   }
-  if (threadIdx.x < R) d[threadIdx.x] = 0.f;
+  if (threadIdx.x < R) sc.d[threadIdx.x] = 0.f;
   __syncthreads();
 
   // ---- penalty homotopy ----
-  for (int o = 0; o < outer; ++o) {
-    for (int it = 0; it < inner; ++it) {
+  for (int o = 0; o <= outer; ++o) {
+    // o < outer: inner projected steps, then the d-update; o == outer: the
+    // final matvec for F, omega and the restart choice
+    const int steps = o < outer ? inner : 0;
+    for (int it = 0; it <= steps; ++it) {
       round_bf16(u, ub, R * N);
       __syncthreads();
-      matvec<R, VEC>(M, ub, w, N);
+      matvec_any<R, BULK>(rg, M, ub, w, N, c0, width, Wp);
       row_col_sums(u, rs, cs, R, n, m);
       __syncthreads();
-      for (int r = 0; r < R; ++r)
-        for (int j = threadIdx.x; j < N; j += blockDim.x) {
-          const int k = r * N + j;
+      if (it < steps) {
+        float sq[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          sq[r] = 0.f;
+          for (int jj = threadIdx.x; jj < width; jj += kThreads) {
+            const int j = c0 + jj, k = r * N + j;
+            const float cbu = (rs[r * n + j / m] + cs[r * m + j % m]) - 2.f * u[k];
+            const float x = fmaxf(w[r * Wp + jj] - sc.d[r] * cbu, 0.f) * v[j];
+            w[r * Wp + jj] = x;
+            sq[r] += x * x;
+          }
+        }
+        cluster_sums<R>(cluster, sq, sc, par);
+        par ^= 1;
+        scatter_u<R>(cluster, w, u, sc.tot, N, c0, width, Wp, true);
+        continue;
+      }
+      // the d-update (o < outer) or F, omega and violations (o == outer)
+      float acc[3 * R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float a0 = 0.f, a1 = 0.f, nv = 0.f;
+        for (int jj = threadIdx.x; jj < width; jj += kThreads) {
+          const int j = c0 + jj, k = r * N + j;
           const float cbu = (rs[r * n + j / m] + cs[r * m + j % m]) - 2.f * u[k];
-          w[k] = fmaxf(w[k] - d[r] * cbu, 0.f) * v[j];
+          const float mu = w[r * Wp + jj];
+          const bool viol = u[k] > active_eps && cbu > active_eps;
+          if (o < outer) {
+            if (viol) {
+              a0 += mu;
+              a1 += cbu;
+              nv += 1.f;
+            }
+          } else {
+            a0 += u[k] * (mu - sc.d[r] * cbu);
+            a1 += u[k] * mu;
+            if (viol) nv += 1.f;
+          }
         }
-      __syncthreads();
-      normalize_rows(w, u, R, N, true, red);
-    }
-    round_bf16(u, ub, R * N);
-    __syncthreads();
-    matvec<R, VEC>(M, ub, w, N);
-    row_col_sums(u, rs, cs, R, n, m);
-    __syncthreads();
-    for (int r = 0; r < R; ++r) {
-      float num = 0.f, den = 0.f, nv = 0.f;
-      for (int j = threadIdx.x; j < N; j += blockDim.x) {
-        const int k = r * N + j;
-        const float cbu = (rs[r * n + j / m] + cs[r * m + j % m]) - 2.f * u[k];
-        if (u[k] > active_eps && cbu > active_eps) {
-          num += w[k];
-          den += cbu;
-          nv += 1.f;
-        }
+        acc[r] = a0;
+        acc[R + r] = a1;
+        acc[2 * R + r] = nv;
       }
-      num = roman::block_sum(num, red);
-      den = roman::block_sum(den, red);
-      nv = roman::block_sum(nv, red);
-      if (threadIdx.x == 0) {
-        const float delta = den > roman::kEps ? num / fmaxf(den, roman::kEps) : 0.f;
-        d[r] = d[r] + delta + (nv > 0.f ? 1e-3f : 0.f);
+      cluster_sums<3 * R>(cluster, acc, sc, par);
+      par ^= 1;
+      if (o < outer) {
+        if (threadIdx.x == 0)
+          for (int r = 0; r < R; ++r) {
+            const float num = sc.tot[r], den = sc.tot[R + r];
+            const float delta = den > roman::kEps ? num / fmaxf(den, roman::kEps) : 0.f;
+            sc.d[r] = sc.d[r] + delta + (sc.tot[2 * R + r] > 0.f ? 1e-3f : 0.f);
+          }
+        __syncthreads();
       }
     }
-    __syncthreads();
   }
 
-  // ---- objective, omega and the restart choice ----
-  round_bf16(u, ub, R * N);
-  __syncthreads();
-  matvec<R, VEC>(M, ub, w, N);
-  row_col_sums(u, rs, cs, R, n, m);
-  __syncthreads();
-  for (int r = 0; r < R; ++r) {
-    float f = 0.f, om = 0.f, nv = 0.f;
-    for (int j = threadIdx.x; j < N; j += blockDim.x) {
-      const int k = r * N + j;
-      const float cbu = (rs[r * n + j / m] + cs[r * m + j % m]) - 2.f * u[k];
-      f += u[k] * (w[k] - d[r] * cbu);
-      om += u[k] * w[k];
-      if (u[k] > active_eps && cbu > active_eps) nv += 1.f;
-    }
-    f = roman::block_sum(f, red);
-    om = roman::block_sum(om, red);
-    nv = roman::block_sum(nv, red);
-    if (threadIdx.x == 0) {
-      Fr[r] = f;
-      omr[r] = om;
-      score[r] = om - (nv > 0.f ? roman::kBigScore : 0.f);
+  // ---- the restart choice: the same in every block ----
+  int best = 0;
+  float best_score = sc.tot[R] - (sc.tot[2 * R] > 0.f ? roman::kBigScore : 0.f);
+  for (int r = 1; r < R; ++r) {
+    const float score = sc.tot[R + r] - (sc.tot[2 * R + r] > 0.f ? roman::kBigScore : 0.f);
+    if (score > best_score) {  // first maximum: restart 0 wins ties
+      best = r;
+      best_score = score;
     }
   }
-  __syncthreads();
-  int best = 0;
-  for (int r = 1; r < R; ++r)
-    if (score[r] > score[best]) best = r;  // first maximum: restart 0 wins ties
-  for (int j = threadIdx.x; j < N; j += blockDim.x)
-    u_out[(size_t)p * N + j] = u[best * N + j];
-  if (threadIdx.x == 0) {
-    d_out[p] = d[best];
-    F_out[p] = Fr[best];
-    om_out[p] = omr[best];
+  for (int jj = threadIdx.x; jj < width; jj += kThreads)
+    u_out[(size_t)p * N + c0 + jj] = u[best * N + c0 + jj];
+  if (rank == 0 && threadIdx.x == 0) {
+    d_out[p] = sc.d[best];
+    F_out[p] = sc.tot[best];
+    om_out[p] = sc.tot[R + best];
   }
 }
 
-template <int R, int VEC>
-cudaError_t launch_vec(const void* M, const void* valid, const void* noise,
+template <int R, bool BULK>
+cudaError_t launch_bulk(const void* M, const void* valid, const void* noise,
                        void* u, void* d, void* F, void* omega, int P, int N,
                        int n, int m, int warmup, int outer, int inner,
-                       float active_eps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)3 * R * N + N + (size_t)R * (n + m));
-  auto kernel = clipper_solve_kernel<R, VEC>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<P, kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)M, (const float*)valid, (const float*)noise,
-      (float*)u, (float*)d, (float*)F, (float*)omega, N, n, m, warmup, outer,
-      inner, active_eps);
-  return cudaGetLastError();
+                       float active_eps, int C, int T, int NS, size_t smem,
+                       const CUtensorMap& map, cudaStream_t stream) {
+  auto kernel = clipper_solve_kernel<R, BULK>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // refuse clusters that cannot be resident at this shared memory
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  return cudaLaunchKernelEx(&cfg, kernel, (const __nv_bfloat16*)M,
+                            (const float*)valid, (const float*)noise, (float*)u,
+                            (float*)d, (float*)F, (float*)omega, N, n, m,
+                            warmup, outer, inner, active_eps, T, NS, map);
 }
 
-// Four columns a thread (8-byte loads) where every row of M starts 8-byte
-// aligned, one column a thread otherwise.
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query so the library needs no link to libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// M (P, N, N) bf16 as a tensor map with boxes of 1 x T rows x bc columns.
+cudaError_t encode_map(CUtensorMap* map, const void* M, int P, int N, int bc,
+                       int T) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &q);
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
+    encode = (EncodeTiled)fn;
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)N, (cuuint64_t)P};
+  const cuuint64_t strides[2] = {(cuuint64_t)N * 2, (cuuint64_t)N * N * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)bc, (cuuint32_t)T, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(M), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The bulk-copy ring where every row of M starts 16-byte aligned and two
+// stages fit beside the vectors; register loads, one column a thread,
+// otherwise.
 template <int R>
 cudaError_t launch(const void* M, const void* valid, const void* noise, void* u,
                    void* d, void* F, void* omega, int P, int N, int n, int m,
-                   int warmup, int outer, int inner, float active_eps,
+                   int warmup, int outer, int inner, float active_eps, int C,
                    cudaStream_t stream) {
-  if (N % 4 == 0 && reinterpret_cast<uintptr_t>(M) % 8 == 0)
-    return launch_vec<R, 4>(M, valid, noise, u, d, F, omega, P, N, n, m,
-                            warmup, outer, inner, active_eps, stream);
-  return launch_vec<R, 1>(M, valid, noise, u, d, F, omega, P, N, n, m, warmup,
-                          outer, inner, active_eps, stream);
+  const int Wp = slice_width(N, C);
+  const size_t base = sizeof(float) * ((size_t)2 * R * N + N + (size_t)R * Wp +
+                                       (size_t)R * (n + m));
+  const bool aligned = N % 8 == 0 && reinterpret_cast<uintptr_t>(M) % 16 == 0;
+  const CUtensorMap none{};
+  if (aligned && Wp / 8 <= kThreads) {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaFuncAttributes fa;
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, clipper_solve_kernel<R, true>);
+    if (e != cudaSuccess) return e;
+    const size_t ring0 = base + 128;  // room to align the ring to 128 bytes
+    const long left = (long)optin - (long)fa.sharedSizeBytes - (long)ring0;
+    const int bc = box_width(Wp), nb = (Wp + bc - 1) / bc;
+    // the largest stages (up to 128 rows) of which two fit, as many of
+    // them as fit up to kMaxStages: few large boxes move M fastest
+    int T = 128, NS = 0;
+    for (; T >= 8; T /= 2) {
+      NS = (int)std::min<long>(kMaxStages, std::max<long>(0, left) / ((long)nb * T * bc * 2));
+      if (NS >= 2) break;
+    }
+    if (NS >= 2) {
+      CUtensorMap map;
+      e = encode_map(&map, M, P, N, bc, T);
+      if (e != cudaSuccess) return e;
+      return launch_bulk<R, true>(M, valid, noise, u, d, F, omega, P, N, n, m,
+                                    warmup, outer, inner, active_eps, C, T, NS,
+                                    ring0 + (size_t)NS * nb * T * bc * 2, map,
+                                    stream);
+    }
+  }
+  return launch_bulk<R, false>(M, valid, noise, u, d, F, omega, P, N, n, m,
+                               warmup, outer, inner, active_eps, C, 0, 0, base,
+                               none, stream);
 }
 
 }  // namespace
 
+// C: blocks per pair (the cluster size), 1..8.
 extern "C" int clipper_solve_launch(const void* M, const void* valid,
                                     const void* noise, void* u, void* d,
                                     void* F, void* omega, int P, int N, int n,
                                     int m, int R, int warmup, int outer,
-                                    int inner, float active_eps, void* stream) {
+                                    int inner, int C, float active_eps,
+                                    void* stream) {
+  if (C < 1 || C > kMaxCluster) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (R) {
 #define ROMAN_CASE(K)                                                          \
   case K:                                                                      \
     return (int)launch<K>(M, valid, noise, u, d, F, omega, P, N, n, m, warmup, \
-                          outer, inner, active_eps, s);
+                          outer, inner, active_eps, C, s);
     ROMAN_CASE(1) ROMAN_CASE(2) ROMAN_CASE(3) ROMAN_CASE(4)
     ROMAN_CASE(5) ROMAN_CASE(6) ROMAN_CASE(7) ROMAN_CASE(8)
 #undef ROMAN_CASE

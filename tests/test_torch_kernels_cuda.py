@@ -13,7 +13,10 @@ Tolerances:
   sums in another order than the twin's matrix product), flags equal;
 - build_affinity: at most one bf16 ulp per entry (expf/logf/sqrtf may
   differ from PyTorch's in the last f32 bit before the bf16 rounding);
-- clipper_solve: u within 2e-3, d, F and omega within rtol 1e-3;
+- clipper_solve: u within 2e-3, d, F and omega within rtol 1e-3 (the
+  kernel splits each matvec's sums into column slices and row segments,
+  the twin's matrix product sums in its own order); two launches on the
+  same inputs bitwise equal;
 - round_refine and the whole fused path: selections and counts equal.
 """
 
@@ -23,7 +26,10 @@ import torch
 
 from roman_tpu_torch.align import fused_register as fr
 from roman_tpu_torch.align.clipper import ClipperSolveParams
-from roman_tpu_torch.align.clipper_solve import clipper_solve, clipper_solve_plain
+from roman_tpu_torch.align.clipper_solve import (clipper_solve,
+                                                 clipper_solve_plain,
+                                                 cluster_size)
+from roman_tpu_torch.align.registration import rescue_solver
 from roman_tpu_torch.align.invariants import SubmapFeatures
 from roman_tpu_torch.sim import world
 
@@ -110,6 +116,81 @@ def test_clipper_solve_matches_plain(stages, restarts):
     for a, b in zip(k[1:], p[1:]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
     assert torch.isfinite(k[0]).all()
+
+
+def _prepared(dev, P, cap1=CAP, cap2=CAP, seed=0, invalid=()):
+    """The plain twins' (P, N, N) affinity and (P, N) valid mask of P sim
+    pair problems; the pairs in `invalid` have no valid object."""
+    f1, f2 = _features(dev, P=P, cap1=cap1, cap2=cap2, seed=seed)
+    for k in invalid:
+        f1.valid[k] = False
+    valid = (f1.valid[:, :, None] & f2.valid[:, None, :]).float().contiguous()
+    hl, nz, single, vflat = fr.assoc_terms_plain(
+        f1.ratio_feats, f1.descriptors, f2.ratio_feats, f2.descriptors, valid, INV)
+    return fr.build_affinity_plain(f1.centers, f2.centers, hl, nz, single, vflat,
+                                   INV), vflat
+
+
+@pytest.fixture(scope="module")
+def batch33(dev):
+    return _prepared(dev, P=33, seed=3)
+
+
+def _assert_solve_close(k, p):
+    torch.testing.assert_close(k[0], p[0], rtol=0, atol=2e-3)
+    for a, b in zip(k[1:], p[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
+    assert all(torch.isfinite(x).all() for x in k)
+
+
+@pytest.mark.parametrize("restarts", [1, 3, 8])
+@pytest.mark.parametrize("P", [1, 3, 8, 33])
+def test_clipper_solve_matches_plain_at_every_cluster_size(batch33, P, restarts):
+    """P = 1, 3, 8 and 33 run clusters of 8, 8, 8 and 4 blocks on 132 SMs."""
+    M, vflat = batch33[0][:P].contiguous(), batch33[1][:P].contiguous()
+    params = ClipperSolveParams(n_restarts=restarts)
+    _assert_solve_close(clipper_solve(M, vflat, CAP, CAP, params),
+                        clipper_solve_plain(M, vflat, CAP, CAP, params))
+
+
+@pytest.mark.parametrize("case", ["rescue_budget", "edge_shape"])
+def test_clipper_solve_matches_plain_on_edge_cases(dev, batch33, case):
+    """The rescue budget (16, 16, 12) on a rescue-sized chunk; and n != m
+    with a misaligned N = 39 * 35 (one-column loads) and one all-invalid
+    pair, which gives u = 0."""
+    if case == "rescue_budget":
+        M, vflat = batch33[0][:5].contiguous(), batch33[1][:5].contiguous()
+        n, m, params = CAP, CAP, rescue_solver(ClipperSolveParams())
+    else:
+        M, vflat = _prepared(dev, P=4, cap1=39, cap2=35, seed=1, invalid=(3,))
+        n, m, params = 39, 35, ClipperSolveParams(n_restarts=3)
+    k = clipper_solve(M, vflat, n, m, params)
+    _assert_solve_close(k, clipper_solve_plain(M, vflat, n, m, params))
+    if case == "edge_shape":
+        assert (k[0][3] == 0).all() and k[2][3] == 0 and k[3][3] == 0
+
+
+@pytest.mark.parametrize("P", [3, 33])
+def test_clipper_solve_is_deterministic(batch33, P):
+    M, vflat = batch33[0][:P].contiguous(), batch33[1][:P].contiguous()
+    params = ClipperSolveParams(n_restarts=3)
+    a = clipper_solve(M, vflat, CAP, CAP, params)
+    b = clipper_solve(M, vflat, CAP, CAP, params)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_clipper_solve_does_not_depend_on_the_batch(batch33):
+    """Pair 0 alone (a cluster of 8) and inside a batch of 33 (a cluster of
+    4): u within 2e-3 and the same rounded and refined selection."""
+    M, vflat = batch33
+    assert (cluster_size(1, 132), cluster_size(33, 132)) == (8, 4)
+    alone = clipper_solve(M[:1].contiguous(), vflat[:1].contiguous(), CAP, CAP)
+    batch = clipper_solve(M, vflat, CAP, CAP)
+    torch.testing.assert_close(alone[0][0], batch[0][0], rtol=0, atol=2e-3)
+    sel_a = fr.round_refine(M[:1].contiguous(), alone[0], alone[2], alone[3], CAP, CAP, INV)
+    sel_b = fr.round_refine(M, batch[0], batch[2], batch[3], CAP, CAP, INV)
+    assert torch.equal(sel_a[0][0], sel_b[0][0]) and sel_a[1][0] == sel_b[1][0]
 
 
 def test_round_refine_matches_plain(stages):
