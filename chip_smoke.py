@@ -16,10 +16,16 @@ N = 1600 candidate associations each), and then:
    memory and spills of every kernel);
 2. holds each of the four kernels against its plain PyTorch twin on the
    card, on 32 pairs (the chunk the main path registers at once), and
-   times both with CUDA events; holds and times the CLIPPER solve also on
-   1 and 8 pairs and at the rescue budget (pairs, blocks per pair, GB/s
-   of M streamed), beside a yardstick: one torch.bmm of bf16 u by M,
-   times the solve's matvec count;
+   times both: a call of the kernel's wrapper and of the twin with CUDA
+   events (``ms``), and the kernel's own device time from torch.profiler
+   (``device_ms``, without the host's work between short launches);
+   prints the ptxas lines of assoc_terms and build_affinity, a yardstick
+   beside assoc_terms (one f32 torch.bmm of the descriptors, TF32 off),
+   and the bf16 ulp histogram of build_affinity against its twin with
+   the nonzero share of M; holds and times the CLIPPER solve also on 1
+   and 8 pairs and at the rescue budget (pairs, blocks per pair, GB/s of
+   M streamed), beside a yardstick: one torch.bmm of bf16 u by M, times
+   the solve's matvec count;
 3. runs the alignment stage through its entry point ``submap_align`` from
    map pickles, with every launch count set to 0 just before and read just
    after, and checks the artifacts it writes;
@@ -259,9 +265,10 @@ def kernel_pairs(auxs, n_pairs=KERNEL_PAIRS):
     return flat // n1, flat % n1
 
 
-def check_kernels(feats, auxs, cfg, reps=10, plain_reps=3):
+def check_kernels(feats, auxs, cfg, ptxas=(), reps=10, plain_reps=3):
     """Each kernel and its twin on the same inputs, on the card. Returns
-    one record per kernel (without launches)."""
+    one record per kernel (without launches). ptxas: the build's summary
+    lines, of which those of assoc_terms and build_affinity are repeated."""
     import torch
 
     from roman_tpu_torch.align import clipper
@@ -270,7 +277,11 @@ def check_kernels(feats, auxs, cfg, reps=10, plain_reps=3):
                                                      clipper_solve_plain,
                                                      cluster_size)
     from roman_tpu_torch.align.registration import rescue_solver
+    from scripts.time_solve import device_ms
 
+    for line in ptxas:
+        if line.startswith(("assoc_terms_kernel", "build_affinity_kernel")):
+            print("ptxas: " + line, flush=True)
     pi, pj = kernel_pairs(auxs)
     dev = feats[0].centers.device
     ii = torch.as_tensor(pi, device=dev)
@@ -307,8 +318,18 @@ def check_kernels(feats, auxs, cfg, reps=10, plain_reps=3):
     records.append(dict(
         name="assoc_terms", max_abs_err=err,
         ms=cuda_ms(lambda: fr.assoc_terms(*a_args), reps),
+        device_ms=device_ms(lambda: fr.assoc_terms(*a_args), reps,
+                            "assoc_terms_kernel"),
         plain_ms=cuda_ms(lambda: fr.assoc_terms_plain(*a_args), plain_reps),
         bound=bound(n_bytes, f32_ops=ops)))
+    # yardstick, not the function: the descriptor dots alone as one f32 bmm
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    d2t = f2.descriptors.transpose(1, 2)
+    bmm_ms = device_ms(lambda: torch.bmm(f1.descriptors, d2t), reps, "")
+    print(f"assoc_terms: kernel {records[-1]['device_ms']:.4f} ms of device time; "
+          f"yardstick: f32 torch.bmm "
+          f"of the descriptors ({P}, {n}, {D}) by ({P}, {D}, {m}), TF32 off, "
+          f"{bmm_ms:.4f} ms", flush=True)
 
     # ---- build_affinity (both fed the plain twin's terms) ----
     b_args = (f1.centers, f2.centers, hl_p, nz_p, single_p, vflat_p, inv)
@@ -316,16 +337,21 @@ def check_kernels(feats, auxs, cfg, reps=10, plain_reps=3):
     torch.cuda.synchronize()
     ulp = (M_k.view(torch.int16).int() - M_p.view(torch.int16).int()).abs()
     err = (M_k.float() - M_p.float()).abs().max().item()
+    hist = {u: int((ulp == u).sum()) for u in (0, 1)}
+    hist[">1"] = M_k.numel() - hist[0] - hist[1]
     print(f"build_affinity: max bf16 ulps {ulp.max().item()} (tol 1), entries "
-          f"off by one ulp {int((ulp == 1).sum())} of {M_k.numel()}, "
-          f"max |dM| {err:.3e}", flush=True)
+          f"by ulps off {hist} of {M_k.numel()}, max |dM| {err:.3e}; nonzero "
+          f"share of M {float((M_k != 0).double().mean()):.6f}", flush=True)
     require(ulp.max().item() <= 1, "build_affinity disagrees with its twin")
-    # about 50 f32 operations per entry, 8 of them sqrt/exp/log
     records.append(dict(
         name="build_affinity", max_abs_err=err,
         ms=cuda_ms(lambda: fr.build_affinity(*b_args), reps),
+        device_ms=device_ms(lambda: fr.build_affinity(*b_args), reps,
+                            "build_affinity_kernel"),
         plain_ms=cuda_ms(lambda: fr.build_affinity_plain(*b_args), plain_reps),
-        bound=bound(nbytes(*b_args[:6], M_k), f32_ops=50.0 * P * N * N)))
+        # the entries that need more than mask tests are a few in ten
+        # thousand (the nonzero share above), so the bytes of M bind
+        bound=bound(nbytes(*b_args[:6], M_k))))
     del M_k
 
     # ---- clipper_solve (both on the twin's affinity), on the main path's
@@ -346,13 +372,16 @@ def check_kernels(feats, auxs, cfg, reps=10, plain_reps=3):
         passes = prm.warmup_iters + prm.outer_iters * (prm.inner_iters + 1) + 1
         C = cluster_size(Pc, sms)
         ms = cuda_ms(lambda: clipper_solve(Mc, vc, n, m, prm), reps)
+        dms = device_ms(lambda: clipper_solve(Mc, vc, n, m, prm), reps,
+                        "clipper_solve_kernel")
         print(f"clipper_solve, {Pc} pairs, {what} ({passes} matvecs): {C} blocks "
-              f"a pair, {Pc * C} blocks, {ms:.4f} ms, "
-              f"{passes * nbytes(Mc) / ms / 1e6:.1f} GB/s of M streamed; max |du| "
+              f"a pair, {Pc * C} blocks, {ms:.4f} ms a call by CUDA events, "
+              f"{passes * nbytes(Mc) / ms / 1e6:.1f} GB/s of M streamed "
+              f"({dms:.4f} ms of device time); max |du| "
               f"{du:.3e} (tol 2e-3), max rel d, F, omega {rel[0]:.3e} {rel[1]:.3e} "
               f"{rel[2]:.3e} (tol 1e-3)", flush=True)
         if Pc == P and prm is params:
-            s_main, p_main, du_main, ms_main = s_k, s_p, du, ms
+            s_main, p_main, du_main, ms_main, dms_main = s_k, s_p, du, ms, dms
     s_k, s_p = s_main, p_main
     R = params.n_restarts
     n_iter = params.outer_iters * (params.inner_iters + 1) + 1
@@ -365,7 +394,7 @@ def check_kernels(feats, auxs, cfg, reps=10, plain_reps=3):
           f"{bmm_ms:.4f} ms, x {matvec_rows} matvecs = {bmm_ms * matvec_rows:.4f} ms "
           f"({nbytes(M_p) / bmm_ms / 1e6:.1f} GB/s)", flush=True)
     records.append(dict(
-        name="clipper_solve", max_abs_err=du_main, ms=ms_main,
+        name="clipper_solve", max_abs_err=du_main, ms=ms_main, device_ms=dms_main,
         plain_ms=cuda_ms(lambda: clipper_solve_plain(M_p, vflat_p, n, m, params),
                          plain_reps),
         bound=bound(nbytes(M_p, vflat_p, *s_k),
@@ -391,12 +420,15 @@ def check_kernels(feats, auxs, cfg, reps=10, plain_reps=3):
     records.append(dict(
         name="round_refine", max_abs_err=err,
         ms=cuda_ms(lambda: fr.round_refine(M_p, u, Fv, om, n, m, inv), reps),
+        device_ms=device_ms(lambda: fr.round_refine(M_p, u, Fv, om, n, m, inv),
+                            reps, "round_refine_kernel"),
         plain_ms=cuda_ms(lambda: fr.round_refine_plain(M_p, u, Fv, om, n, m, inv),
                          plain_reps),
         bound=bound(nbytes(u, Fv, om, *r_k) + m_bytes,
                     f32_ops=P * max_steps * 3.0 * N)))
     for r in records:
-        print(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        print(f"{r['name']}: kernel {r['ms']:.4f} ms a call by CUDA events "
+              f"({r['device_ms']:.4f} ms of device time), plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}) on {P} pairs",
               flush=True)
     return records
@@ -628,7 +660,8 @@ def main() -> int:
     print(f"built {len(list(build.SRC_DIR.glob('*.cu')))} sources with "
           f"{' '.join(build.NVCC_FLAGS)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for line in ptxas_summary(log):
+    ptxas = ptxas_summary(log)
+    for line in ptxas:
         print("  " + line, flush=True)
 
     dev = torch.device("cuda")
@@ -639,7 +672,7 @@ def main() -> int:
           f"capacity {CAPACITY}, {DESC_DIM}-d, made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    records = check_kernels(feats, auxs, cfg)
+    records = check_kernels(feats, auxs, cfg, ptxas)
     with tempfile.TemporaryDirectory() as workdir:
         main_counts, _, _ = run_main_path(runs, maps, workdir, dev)
     require(all(v > 0 for v in main_counts.values()),
@@ -654,7 +687,8 @@ def main() -> int:
         source=sources.get(r["name"], "roman_tpu_torch/csrc/fused_register.cu"),
         replaces=replaces.get(r["name"], "roman_tpu/align/fused_register.py:111"),
         launches=main_counts[r["name"]], max_abs_err=r["max_abs_err"],
-        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+        ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound"][0],
         bound_by=r["bound"][1], library_ms=None) for r in records]}
     print(json.dumps(line), flush=True)
     print(nvidia_smi(), flush=True)

@@ -13,6 +13,8 @@
 // (round-to-nearest-even). The library is built with -fmad=false and no
 // fast math, so each operation rounds as the PyTorch twin's does and only
 // expf/logf/sqrtf may differ from it in the last f32 bit.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -20,6 +22,7 @@ namespace {
 struct AssocParams {
   int n, m, F, D;
   int use_ratio, use_cosine;
+  int vec;  // 16-byte descriptor copies: D % 4 == 0 and both bases 16-byte aligned
   float eps_shape, cos_min, cos_den;  // cos_den = max(cos_max - cos_min, 1e-9)
 };
 
@@ -34,161 +37,400 @@ struct RoundParams {
 };
 
 // ---------------------------------------------------------------------------
-// assoc_terms: one block per pair.
+// assoc_terms: grid (tile of kAssocRows rows a, pair); a thread per column b.
 //
 // Per association i = a*m + b: the ratio geometric mean over F shape
 // features and the clipped descriptor cosine (an f32 loop over D, in
 // feature order, as the TPU kernel computed it in its own body rather than
 // as a library product), written as flat N-vectors: half-log score and
 // nonzero flag per term, the fused single score, and the valid flag.
-// Bounded by the D-long dot products (n*m*D multiply-adds per pair, about
-// 1.2 M at capacity 40); the features are read through L1, the outputs
-// are a few N-vectors.
+// Replaces the terms block of K1 (roman_tpu/align/fused_register.py:185-260).
+//
+// Bound on this card: the D-long dot products (n*m*D multiply-adds a pair,
+// 1.2 M at capacity 40) and reading the descriptors (7.9 MB for 32 pairs),
+// both a few microseconds; what costs is latency. So a pair is spread over
+// n / kAssocRows blocks, and each block stages slices of kAssocSlice
+// features of its rows of d1 and of all m rows of d2 in shared memory with
+// asynchronous coalesced copies (16 bytes where D % 4 == 0, else 4), a
+// ring of kAssocStages slices, so later slices are copied while one is
+// summed. Each thread reads its column four features at a time, keeps the
+// kAssocRows dots of its column b in registers and sums each one, and its
+// norms, in feature order with no FMA: bitwise the sums of a plain loop.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256)
+constexpr int kAssocRows = 2;       // rows a a block
+constexpr int kAssocThreads = 64;   // columns b a pass
+constexpr int kAssocSlice = 64;     // features a staged slice
+constexpr int kAssocStages = 2;     // slices in flight or being summed
+// Row stride of a staged slice: 16-byte aligned rows, and a float4 read of
+// the same features by 8 neighbouring threads (8 rows) hits 8 distinct
+// 16-byte bank groups.
+constexpr int kAssocStride = kAssocSlice + 4;
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending));
+}
+
+// Start copying features [k0, k0 + ks) of d1's rows a0.. (na_rows) and of
+// d2's rows b0.. (nb_rows) into one buffer of s1 and s2: 16 bytes a copy
+// where vec, else 4; neighbouring threads take neighbouring addresses.
+__device__ __forceinline__ void stage_slice(const float* D1, const float* D2,
+                                            int D, bool vec, int a0, int na_rows,
+                                            int b0, int nb_rows, int k0, int ks,
+                                            float (*s1)[kAssocStride],
+                                            float (*s2)[kAssocStride]) {
+  const int W = vec ? 4 : 1;  // floats a copy
+  const int per_row = kAssocSlice / W;
+  const int items = (na_rows + nb_rows) * per_row;
+  for (int e = threadIdx.x; e < items; e += kAssocThreads) {
+    const int r = e / per_row, c = W * (e - r * per_row);
+    if (c >= ks) continue;
+    const float* src = (r < na_rows ? D1 + (size_t)(a0 + r) * D
+                                    : D2 + (size_t)(b0 + r - na_rows) * D) + k0 + c;
+    float* dst = (r < na_rows ? s1[r] : s2[r - na_rows]) + c;
+    if (vec) cp_async16(dst, src);
+    else cp_async4(dst, src);
+  }
+}
+
+__global__ void __launch_bounds__(kAssocThreads)
 assoc_terms_kernel(const float* __restrict__ r1, const float* __restrict__ d1,
                    const float* __restrict__ r2, const float* __restrict__ d2,
                    const float* __restrict__ valid, float* __restrict__ hl,
                    float* __restrict__ nz, float* __restrict__ single,
                    float* __restrict__ vflat, AssocParams q) {
-  extern __shared__ float norms[];  // n + m descriptor norms
-  const int p = blockIdx.x;
+  // a ring of slices: this block's rows of d1, the pass's rows of d2
+  __shared__ __align__(16) float s1[kAssocStages][kAssocRows][kAssocStride];
+  __shared__ __align__(16) float s2[kAssocStages][kAssocThreads][kAssocStride];
+  __shared__ float norm1[kAssocRows];
+  const int p = blockIdx.y, a0 = blockIdx.x * kAssocRows;
   const int n = q.n, m = q.m, N = n * m, F = q.F, D = q.D;
+  const int na_rows = min(kAssocRows, n - a0);
   const float* R1 = r1 + (size_t)p * n * F;
   const float* R2 = r2 + (size_t)p * m * F;
   const float* D1 = d1 + (size_t)p * n * D;
   const float* D2 = d2 + (size_t)p * m * D;
-  if (q.use_cosine) {
-    for (int k = threadIdx.x; k < n + m; k += blockDim.x) {
-      const float* x = k < n ? D1 + (size_t)k * D : D2 + (size_t)(k - n) * D;
-      float s = 0.f;
-      for (int c = 0; c < D; ++c) s = s + x[c] * x[c];
-      norms[k] = sqrtf(s);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const int a = i / m, b = i % m;
-    float scores[2];
-    int t = 0;
-    if (q.use_ratio) {
-      float logsum = 0.f;
-      bool all_nz = true;
-      for (int f = 0; f < F; ++f) {
-        const float x = fabsf(R1[a * F + f]);
-        const float y = fabsf(R2[b * F + f]);
-        float rho = fminf(x, y) / fmaxf(fmaxf(x, y), 1e-9f);
-        rho = rho >= q.eps_shape ? rho : 0.f;
-        logsum = logsum + logf(fmaxf(rho, 1e-20f));
-        all_nz = all_nz && rho > 0.f;
+  const int tid = threadIdx.x;
+  const int S = q.use_cosine ? (D + kAssocSlice - 1) / kAssocSlice : 0;
+
+  for (int b0 = 0; b0 < m; b0 += kAssocThreads) {
+    const int nb_rows = min(kAssocThreads, m - b0);
+    const int b = b0 + tid;
+    const bool col = tid < nb_rows, row = b0 == 0 && tid < na_rows;
+    float dot[kAssocRows];
+#pragma unroll
+    for (int t = 0; t < kAssocRows; ++t) dot[t] = 0.f;
+    float sb = 0.f, sa = 0.f;
+    // slices s + 1 .. s + kAssocStages - 1 are copied while slice s is
+    // summed; one commit group a slice (empty past the last)
+    auto stage = [&](int s) {
+      if (s < S) {
+        const int k0 = s * kAssocSlice;
+        stage_slice(D1, D2, D, q.vec, a0, na_rows, b0, nb_rows, k0,
+                    min(kAssocSlice, D - k0), s1[s % kAssocStages],
+                    s2[s % kAssocStages]);
       }
-      scores[t++] = expf(logsum / (float)F) * (all_nz ? 1.f : 0.f);
+      cp_async_commit();
+    };
+    for (int s = 0; s < kAssocStages - 1; ++s) stage(s);
+    for (int s = 0; s < S; ++s) {
+      const int ks = min(kAssocSlice, D - s * kAssocSlice);
+      cp_async_wait<kAssocStages - 2>();  // slice s has landed
+      __syncthreads();  // for every thread; and slice s - 1 is summed
+      stage(s + kAssocStages - 1);  // into slice s - 1's buffer
+      const float (*x)[kAssocStride] = s1[s % kAssocStages];
+      const float* y = s2[s % kAssocStages][tid];
+      const int k4 = ks & ~3;
+      // threads of columns sum their dots and their column's norm; threads
+      // tid < na_rows also row tid's norm, from the same reads (a thread
+      // that is not a column's reads a stale row of s2 and discards it)
+      if (col || row) {
+#pragma unroll 4
+        for (int c = 0; c < k4; c += 4) {
+          const float4 y4 = *reinterpret_cast<const float4*>(y + c);
+          sb = sb + y4.x * y4.x;
+          sb = sb + y4.y * y4.y;
+          sb = sb + y4.z * y4.z;
+          sb = sb + y4.w * y4.w;
+#pragma unroll
+          for (int t = 0; t < kAssocRows; ++t) {
+            const float4 x4 = *reinterpret_cast<const float4*>(x[t] + c);
+            dot[t] = dot[t] + x4.x * y4.x;
+            dot[t] = dot[t] + x4.y * y4.y;
+            dot[t] = dot[t] + x4.z * y4.z;
+            dot[t] = dot[t] + x4.w * y4.w;
+            if (row && t == tid) {
+              sa = sa + x4.x * x4.x;
+              sa = sa + x4.y * x4.y;
+              sa = sa + x4.z * x4.z;
+              sa = sa + x4.w * x4.w;
+            }
+          }
+        }
+        for (int c = k4; c < ks; ++c) {
+          sb = sb + y[c] * y[c];
+#pragma unroll
+          for (int t = 0; t < kAssocRows; ++t) {
+            dot[t] = dot[t] + x[t][c] * y[c];
+            if (row && t == tid) sa = sa + x[t][c] * x[t][c];
+          }
+        }
+      }
     }
-    if (q.use_cosine) {
-      const float* x = D1 + (size_t)a * D;
-      const float* y = D2 + (size_t)b * D;
-      float dot = 0.f;
-      for (int c = 0; c < D; ++c) dot = dot + x[c] * y[c];
-      const float na = norms[a], nb = norms[n + b];
-      const float den = na * nb;
-      const float cs = den > 1e-9f ? dot / fmaxf(den, 1e-9f) : 1.f;
-      const bool missing = na < 1e-9f || nb < 1e-9f;
-      const float s = fminf(fmaxf((cs - q.cos_min) / q.cos_den, 0.f), 1.f);
-      scores[t++] = missing ? 1.f : s;
+    __syncthreads();  // the ring is refilled by the next pass
+    if (row) norm1[tid] = sqrtf(sa);
+    __syncthreads();
+    if (!col) continue;
+    const float nb = sqrtf(sb);
+#pragma unroll
+    for (int ta = 0; ta < kAssocRows; ++ta) {
+      if (ta >= na_rows) break;
+      const int a = a0 + ta, i = a * m + b;
+      float scores[2];
+      int t = 0;
+      if (q.use_ratio) {
+        float logsum = 0.f;
+        bool all_nz = true;
+        for (int f = 0; f < F; ++f) {
+          const float x = fabsf(R1[a * F + f]);
+          const float y = fabsf(R2[b * F + f]);
+          float rho = fminf(x, y) / fmaxf(fmaxf(x, y), 1e-9f);
+          rho = rho >= q.eps_shape ? rho : 0.f;
+          logsum = logsum + logf(fmaxf(rho, 1e-20f));
+          all_nz = all_nz && rho > 0.f;
+        }
+        scores[t++] = expf(logsum / (float)F) * (all_nz ? 1.f : 0.f);
+      }
+      if (q.use_cosine) {
+        const float na = norm1[ta];
+        const float den = na * nb;
+        const float cs = den > 1e-9f ? dot[ta] / fmaxf(den, 1e-9f) : 1.f;
+        const bool missing = na < 1e-9f || nb < 1e-9f;
+        const float s = fminf(fmaxf((cs - q.cos_min) / q.cos_den, 0.f), 1.f);
+        scores[t++] = missing ? 1.f : s;
+      }
+      float log_single = 0.f;
+      bool single_nz = true;
+      for (int k = 0; k < t; ++k) {
+        const float lg = logf(fmaxf(scores[k], 1e-20f));
+        hl[((size_t)p * 2 + k) * N + i] = 0.5f * lg;
+        nz[((size_t)p * 2 + k) * N + i] = scores[k] > 1e-20f ? 1.f : 0.f;
+        log_single = log_single + lg;
+        single_nz = single_nz && scores[k] > 0.f;
+      }
+      float s = t > 0 ? expf(log_single / (float)t) * (single_nz ? 1.f : 0.f) : 1.f;
+      const bool vi = valid[(size_t)p * N + i] > 0.5f;
+      single[(size_t)p * N + i] = vi ? s : 0.f;
+      vflat[(size_t)p * N + i] = vi ? 1.f : 0.f;
     }
-    float log_single = 0.f;
-    bool single_nz = true;
-    for (int k = 0; k < t; ++k) {
-      const float lg = logf(fmaxf(scores[k], 1e-20f));
-      hl[((size_t)p * 2 + k) * N + i] = 0.5f * lg;
-      nz[((size_t)p * 2 + k) * N + i] = scores[k] > 1e-20f ? 1.f : 0.f;
-      log_single = log_single + lg;
-      single_nz = single_nz && scores[k] > 0.f;
-    }
-    float s = t > 0 ? expf(log_single / (float)t) * (single_nz ? 1.f : 0.f) : 1.f;
-    const bool vi = valid[(size_t)p * N + i] > 0.5f;
-    single[(size_t)p * N + i] = vi ? s : 0.f;
-    vflat[(size_t)p * N + i] = vi ? 1.f : 0.f;
   }
 }
 
 // ---------------------------------------------------------------------------
-// build_affinity: grid (pair, tile of kRows rows), thread per column.
+// build_affinity: grid (group of rows b_i, a_i, pair); 8 columns a thread.
 //
 // Writes M[i, j] (bf16) for association i = (a_i, b_i) (row) and
-// j = (a_j, b_j) (column), from the endpoint coordinates (exact gathers by
-// index: a = i / m, b = i % m) and the flat vectors of assoc_terms:
+// j = (a_j, b_j) (column) from the flat vectors of assoc_terms:
 // gravity-gated distance consistency, log-space geometric mean with the
 // per-association half-logs, conflict / diagonal / invalid masks and the
-// single scores on the diagonal (roman_tpu/align/fused_register.py:267-300).
-// Bounded by its arithmetic (about 30 f32 operations and 5 transcendental
-// calls per entry, 2.56 M entries per pair at N = 1600) and by writing
-// 5.12 MB per pair; neighbouring threads write neighbouring entries.
+// single scores on the diagonal. Replaces roman_tpu/align/
+// fused_register.py:262-300 (the affinity block of K1).
+//
+// Bound on this card: the 5.12 MB a pair it writes (0.05 ms for 32 pairs
+// at 3.35 TB/s), once the entries that are zero skip their arithmetic; a
+// live entry costs one IEEE sqrtf, two IEEE divisions and the expf, logf,
+// expf chain, and if every entry paid that the kernel would be bound by
+// instruction issue. The design cuts everything else:
+// - The intra-map geometry depends only on (a_i, a_j) and on (b_i, b_j).
+//   Each block tabulates it in shared memory once (map 1: its own a_i
+//   against every a_j; map 2: its rows' b_i against every b_j), so an
+//   entry does no coordinate gather and 1 sqrtf instead of 5. Each value
+//   is the same f32 expression of the same operands as the twin's.
+// - The columns' half-logs and flags are staged in shared memory, the
+//   rows' too; a column's flags are folded into one byte.
+// - A thread walks 8 consecutive columns, carrying (a_j, b_j) forward from
+//   a per-block table of chunk starts: no integer division per entry. The
+//   8 bf16 go out as one 16-byte store where rows are 16-byte aligned
+//   (N % 8 == 0), else one by one.
+// - Entries that are +0 whatever the transcendentals give (a dead row or
+//   column, a conflict, a failed gate or cdist >= epsilon) skip them: the
+//   twin multiplies exp(...) by 0 there, so no bit changes.
+// - Rows are split into groups of at most 16 b_i, so a
+//   chunk of 3 pairs still gives hundreds of blocks; a block's (row,
+//   chunk) items are dealt to its threads in turn, so only the last warp
+//   of a block can be partly idle.
 // ---------------------------------------------------------------------------
-constexpr int kBuildRows = 8;
+constexpr int kBuildThreads = 256;
+constexpr int kBuildMaxRows = 16;  // b_i rows a block, at most
+constexpr int kBuildCols = 8;      // consecutive columns a thread: 16 bytes of bf16
 
-__global__ void __launch_bounds__(256)
+// Dynamic shared memory of a block of R rows, as the kernel carves it:
+// floats (t1: D, |dZ|, dxy of (a_i, a_j), 3 x n; t2: the same of (b_i, b_j),
+// 3 x R x m; hlc: T x N column half-logs; hlr: T x R row half-logs; sgr: R
+// single scores), then shorts (chunk starts a_j, b_j: 2 x C), then bytes
+// (column live N, row live R, row valid R), so every part stays aligned.
+inline size_t build_smem_bytes(int n, int m, int R, int T) {
+  const int N = n * m, C = (N + kBuildCols - 1) / kBuildCols;
+  return sizeof(float) * (3 * n + 3 * R * m + T * N + T * R + R) +
+         sizeof(short) * 2 * C + N + 2 * R;
+}
+
+// intra-map geometry of two points, as the twin computes it:
+// sqrt(dxy2 + dZ^2 + 1e-20), |dZ|, sqrt(dxy2 + 1e-20) of (row - column)
+__device__ __forceinline__ void pair_geometry(const float* a, const float* b,
+                                              float* D, float* Z, float* XY) {
+  const float dX = a[0] - b[0], dY = a[1] - b[1], dZ = a[2] - b[2];
+  const float dxy2 = dX * dX + dY * dY;
+  *D = sqrtf(dxy2 + dZ * dZ + 1e-20f);
+  *Z = fabsf(dZ);
+  *XY = sqrtf(dxy2 + 1e-20f);
+}
+
+__global__ void __launch_bounds__(kBuildThreads)
 build_affinity_kernel(const float* __restrict__ c1, const float* __restrict__ c2,
                       const float* __restrict__ hl, const float* __restrict__ nz,
                       const float* __restrict__ single,
                       const float* __restrict__ vflat,
                       __nv_bfloat16* __restrict__ M_all, BuildParams q) {
-  const int p = blockIdx.x;
   const int n = q.n, m = q.m, N = n * m, T = q.n_terms;
+  const int G = gridDim.x, g = blockIdx.x, ai = blockIdx.y, p = blockIdx.z;
+  // rows b0 .. b0 + R - 1 of a_i: the first m % G groups take one row more
+  const int base = m / G, extra = m % G;
+  const int R = base + (g < extra ? 1 : 0);
+  const int b0 = g * base + min(g, extra);
+  const int C = (N + kBuildCols - 1) / kBuildCols;  // chunks of 8 columns a row
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* t1D = reinterpret_cast<float*>(smem);
+  float* t1Z = t1D + n;
+  float* t1XY = t1Z + n;
+  float* t2D = t1XY + n;
+  float* t2Z = t2D + R * m;
+  float* t2XY = t2Z + R * m;
+  float* hlc = t2XY + R * m;
+  float* hlr = hlc + T * N;
+  float* sgr = hlr + T * R;
+  short* ja = reinterpret_cast<short*>(sgr + R);
+  short* jb = ja + C;
+  unsigned char* live_c = reinterpret_cast<unsigned char*>(jb + C);
+  unsigned char* live_r = live_c + N;
+  unsigned char* valid_r = live_r + R;
+
   const float* C1 = c1 + (size_t)p * n * 3;
   const float* C2 = c2 + (size_t)p * m * 3;
   const float* HL = hl + (size_t)p * 2 * N;
   const float* NZ = nz + (size_t)p * 2 * N;
   const float* SG = single + (size_t)p * N;
   const float* VF = vflat + (size_t)p * N;
-  const float num_comp = (float)(1 + T);
-  __nv_bfloat16* M = M_all + (size_t)p * N * N;
-  for (int rr = 0; rr < kBuildRows; ++rr) {
-    const int i = blockIdx.y * kBuildRows + rr;
-    if (i >= N) break;
-    const int ai = i / m, bi = i % m;
-    const float x1 = C1[ai * 3], y1 = C1[ai * 3 + 1], z1 = C1[ai * 3 + 2];
-    const float x2 = C2[bi * 3], y2 = C2[bi * 3 + 1], z2 = C2[bi * 3 + 2];
-    const bool vi = VF[i] > 0.5f;
-    for (int j = threadIdx.x; j < N; j += blockDim.x) {
-      const int aj = j / m, bj = j % m;
-      // intra-map geometry of both endpoints
-      const float dX1 = x1 - C1[aj * 3], dY1 = y1 - C1[aj * 3 + 1],
-                  dZ1 = z1 - C1[aj * 3 + 2];
-      const float dxy2_1 = dX1 * dX1 + dY1 * dY1;
-      const float D1 = sqrtf(dxy2_1 + dZ1 * dZ1 + 1e-20f);
-      const float dX2 = x2 - C2[bj * 3], dY2 = y2 - C2[bj * 3 + 1],
-                  dZ2 = z2 - C2[bj * 3 + 2];
-      const float dxy2_2 = dX2 * dX2 + dY2 * dY2;
-      const float D2 = sqrtf(dxy2_2 + dZ2 * dZ2 + 1e-20f);
-      const bool gate = D1 > q.mindist && D2 > q.mindist;
-      float cdist;
-      if (q.gravity) {
-        const float slack = q.sin_unc * fmaxf(D1, D2);
-        const float cz = fmaxf(fabsf(fabsf(dZ1) - fabsf(dZ2)) - slack, 0.f);
-        const float cxy = fabsf(sqrtf(dxy2_1 + 1e-20f) - sqrtf(dxy2_2 + 1e-20f));
-        cdist = sqrtf(cz * cz + cxy * cxy + 1e-20f);
-      } else {
-        cdist = fabsf(D1 - D2);
-      }
-      const float tq = cdist / q.sigma;
-      float sd = expf(-0.5f * (tq * tq));
-      sd = (cdist < q.epsilon && gate) ? sd : 0.f;
-      float logM = logf(fmaxf(sd, 1e-20f));
-      bool nonzero = sd > 0.f;
-      for (int t = 0; t < T; ++t) {
-        logM = logM + HL[t * N + i];
-        logM = logM + HL[t * N + j];
-        nonzero = nonzero && NZ[t * N + i] > 0.5f && NZ[t * N + j] > 0.5f;
-      }
-      float val = expf(logM / num_comp) * (nonzero ? 1.f : 0.f);
-      const bool same_a = ai == aj, same_b = bi == bj;
-      const bool diag = same_a && same_b;
-      const bool valid4 = vi && VF[j] > 0.5f;
-      if ((same_a != same_b) || diag || !valid4) val = 0.f;
-      val = val + ((diag && valid4) ? SG[j] + 0.f * val : 0.f);
-      M[(size_t)i * N + j] = __float2bfloat16_rn(val);
+
+  // ---- per-block tables ----
+  for (int k = threadIdx.x; k < n; k += blockDim.x)
+    pair_geometry(C1 + ai * 3, C1 + k * 3, &t1D[k], &t1Z[k], &t1XY[k]);
+  for (int k = threadIdx.x; k < R * m; k += blockDim.x) {
+    const int r = k / m, bj = k - r * m;
+    pair_geometry(C2 + (b0 + r) * 3, C2 + bj * 3, &t2D[k], &t2Z[k], &t2XY[k]);
+  }
+  for (int j = threadIdx.x; j < N; j += blockDim.x) {
+    bool live = VF[j] > 0.5f;
+    for (int t = 0; t < T; ++t) {
+      hlc[t * N + j] = HL[t * N + j];
+      live = live && NZ[t * N + j] > 0.5f;
     }
+    live_c[j] = live;
+  }
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const int i = ai * m + b0 + r;
+    const bool vi = VF[i] > 0.5f;
+    bool live = vi;
+    for (int t = 0; t < T; ++t) {
+      hlr[t * R + r] = HL[t * N + i];
+      live = live && NZ[t * N + i] > 0.5f;
+    }
+    sgr[r] = SG[i];
+    valid_r[r] = vi;
+    live_r[r] = live;
+  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const int a = c * kBuildCols / m;
+    ja[c] = (short)a;
+    jb[c] = (short)(c * kBuildCols - a * m);
+  }
+  __syncthreads();
+
+  // ---- items (row r, chunk c of 8 columns), dealt to the threads in turn ----
+  const float num_comp = (float)(1 + T);
+  const bool vec_store = (N % kBuildCols) == 0;
+  int r = threadIdx.x / C, c = threadIdx.x - (threadIdx.x / C) * C;
+  for (int it = threadIdx.x; it < R * C; it += blockDim.x) {
+    const int bi = b0 + r;
+    const size_t row = (size_t)p * N * N + (size_t)(ai * m + bi) * N;
+    const int j0 = c * kBuildCols;
+    const int kn = min(kBuildCols, N - j0);
+    const bool rlive = live_r[r];
+    const float* t2Dr = t2D + r * m;
+    const float* t2Zr = t2Z + r * m;
+    const float* t2XYr = t2XY + r * m;
+    int aj = ja[c], bj = jb[c];
+    float v[kBuildCols];
+#pragma unroll
+    for (int k = 0; k < kBuildCols; ++k) {
+      const bool same_a = aj == ai, same_b = bj == bi;
+      const bool live = k < kn && rlive && !same_a && !same_b && live_c[j0 + k];
+      float val = 0.f;
+      if (live) {
+        const float D1 = t1D[aj], D2 = t2Dr[bj];
+        const bool gate = D1 > q.mindist && D2 > q.mindist;
+        float cdist;
+        if (q.gravity) {
+          const float slack = q.sin_unc * fmaxf(D1, D2);
+          const float cz = fmaxf(fabsf(t1Z[aj] - t2Zr[bj]) - slack, 0.f);
+          const float cxy = fabsf(t1XY[aj] - t2XYr[bj]);
+          cdist = sqrtf(cz * cz + cxy * cxy + 1e-20f);
+        } else {
+          cdist = fabsf(D1 - D2);
+        }
+        const bool close = cdist < q.epsilon && gate;
+        if (close) {
+          const float tq = cdist / q.sigma;
+          const float sd = expf(-0.5f * (tq * tq));
+          float logM = logf(fmaxf(sd, 1e-20f));
+          for (int t = 0; t < T; ++t) {
+            logM = logM + hlr[t * R + r];
+            logM = logM + hlc[t * N + j0 + k];
+          }
+          val = expf(logM / num_comp) * (sd > 0.f ? 1.f : 0.f);
+        }
+      }
+      // the diagonal: the masked 0 plus the single score (twin: M + (s + 0 M))
+      if (same_a && same_b) val = valid_r[r] ? 0.f + (sgr[r] + 0.f) : 0.f;
+      v[k] = val;
+      if (++bj == m) { bj = 0; ++aj; }
+    }
+    if (vec_store) {
+      uint4 pk;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&pk);
+#pragma unroll
+      for (int k = 0; k < kBuildCols / 2; ++k)
+        h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+      *reinterpret_cast<uint4*>(M_all + row + j0) = pk;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kBuildCols; ++k)
+        if (k < kn) M_all[row + j0 + k] = __float2bfloat16_rn(v[k]);
+    }
+    c += blockDim.x;
+    while (c >= C) { c -= C; ++r; }
   }
 }
 
@@ -321,8 +563,12 @@ extern "C" int assoc_terms_launch(const void* r1, const void* d1, const void* r2
                                   int n, int m, int F, int D, int use_ratio,
                                   int use_cosine, float eps_shape, float cos_min,
                                   float cos_den, void* stream) {
-  AssocParams q{n, m, F, D, use_ratio, use_cosine, eps_shape, cos_min, cos_den};
-  assoc_terms_kernel<<<P, 256, sizeof(float) * (n + m), (cudaStream_t)stream>>>(
+  if (n == 0 || m == 0) return 0;  // no association: nothing to write
+  if (P > 65535) return (int)cudaErrorInvalidValue;  // grid's y
+  const int vec = D % 4 == 0 && (uintptr_t)d1 % 16 == 0 && (uintptr_t)d2 % 16 == 0;
+  AssocParams q{n, m, F, D, use_ratio, use_cosine, vec, eps_shape, cos_min, cos_den};
+  dim3 grid((n + kAssocRows - 1) / kAssocRows, P);
+  assoc_terms_kernel<<<grid, kAssocThreads, 0, (cudaStream_t)stream>>>(
       (const float*)r1, (const float*)d1, (const float*)r2, (const float*)d2,
       (const float*)valid, (float*)hl, (float*)nz, (float*)single, (float*)vflat, q);
   return (int)cudaGetLastError();
@@ -335,9 +581,20 @@ extern "C" int build_affinity_launch(const void* c1, const void* c2, const void*
                                      float epsilon, float mindist, float sin_unc,
                                      void* stream) {
   BuildParams q{n, m, n_terms, gravity, sigma, epsilon, mindist, sin_unc};
-  const int N = n * m;
-  dim3 grid(P, (N + kBuildRows - 1) / kBuildRows);
-  build_affinity_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+  // row groups of one a_i: at most kBuildMaxRows b_i each, as even as possible
+  const int G = (m + kBuildMaxRows - 1) / kBuildMaxRows;
+  if (n == 0 || m == 0) return 0;  // no association: nothing to write
+  if (n > 32767 || m > 32767 || P > 65535)  // short chunk table; grid's z
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = build_smem_bytes(n, m, (m + G - 1) / G, n_terms);
+  auto kernel = build_affinity_kernel;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(G, n, P);
+  kernel<<<grid, kBuildThreads, smem, (cudaStream_t)stream>>>(
       (const float*)c1, (const float*)c2, (const float*)hl, (const float*)nz,
       (const float*)single, (const float*)vflat, (__nv_bfloat16*)M, q);
   return (int)cudaGetLastError();

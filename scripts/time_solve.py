@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's CLIPPER solve kernel and the pair grid on one CUDA card.
+"""Time the port's kernels and the pair grid on one CUDA card.
 
 Run from the root of a checkout of the port (the checkout's own
 ``chip_smoke.py`` and ``roman_tpu_torch`` are imported from the working
@@ -8,11 +8,16 @@ directory, so the same script times an older checkout too):
     python3 scripts/time_solve.py [label]
 
 On the bench world of ``chip_smoke.py`` (seed 0, capacity 40, N = 1600)
-it prints one JSON line: the card and its power limit; ``clipper_solve``
-in ms (CUDA events, mean of 10 after a warmup) and GB/s of M streamed
-(matvecs x bytes of M / time) on 32 pairs at the default budget, on 1
-and 8 pairs, and on 8 pairs at the rescue budget; and PairGridRegistrar
-pairs/s over the 506-pair grid (best of 3) at chunks 32, 64 and 128.
+it prints one JSON line: the card and its power limit; ``assoc_terms``
+and ``build_affinity`` in ms on 32 and 3 pairs and on 32 pairs at
+capacity 64 (N = 4096), with sha256 digests of their outputs on the
+32-pair chunk (hl, nz, single, vflat; and M built from the plain twin's
+terms), so two checkouts can be compared bit for bit; ``clipper_solve``
+in ms and GB/s of M streamed (matvecs x bytes of M / time) on 32 pairs at
+the default budget, on 1 and 8 pairs, and on 8 pairs at the rescue
+budget; and PairGridRegistrar pairs/s over the 506-pair grid (best of 3)
+at chunks 32, 64 and 128. Kernel times are device times from
+torch.profiler, means of 10 launches after a warmup.
 
 To compare two checkouts, run them in one call in turns A B B A, e.g.
 ``for d in old . . old; do (cd $d && python3 $OLDPWD/scripts/time_solve.py $d); done``.
@@ -20,10 +25,35 @@ To compare two checkouts, run them in one call in turns A B B A, e.g.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
 import time
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time in ms of the kernels whose name holds `kernel`, per
+    call of fn() (one warmup call, then reps calls under torch.profiler):
+    without the host's launch gaps, which CUDA events around a launch of a
+    few tens of microseconds would count. Defined here, and imported by
+    chip_smoke.py, so that this script also times checkouts whose
+    chip_smoke.py lacks it. Raises when the profiler saw no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    if total <= 0:
+        raise RuntimeError(f"the profiler saw no kernel named like {kernel!r}")
+    return total / reps / 1e3
 
 
 def main() -> int:
@@ -45,25 +75,49 @@ def main() -> int:
     build.build_all()
     dev = torch.device("cuda")
     runs, maps = cs.make_world()
-    _, feats, auxs, cfg = cs.grid_features(maps, dev)
-    pi, pj = cs.kernel_pairs(auxs)
-    f1 = feats[0].map(lambda x: x[torch.as_tensor(pi, device=dev)].contiguous())
-    f2 = feats[1].map(lambda x: x[torch.as_tensor(pj, device=dev)].contiguous())
-    inv = fr.FusedInvariantStatics(cos_min=cfg.cos_min, cos_max=cfg.cos_max,
-                                   max_clique=cfg.max_clique)
-    valid = (f1.valid[:, :, None] & f2.valid[:, None, :]).float().contiguous()
-    hl, nz, single, vflat = fr.assoc_terms_plain(
-        f1.ratio_feats, f1.descriptors, f2.ratio_feats, f2.descriptors, valid, inv)
-    M = fr.build_affinity_plain(f1.centers, f2.centers, hl, nz, single, vflat, inv)
-    n = m = cs.CAPACITY
     out = {"label": sys.argv[1] if len(sys.argv) > 1 else os.getcwd(),
            "card": cs.nvidia_smi()}
+
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    for capacity in (cs.CAPACITY, 64):
+        _, feats_c, auxs_c, cfg_c = cs.grid_features(maps, dev, capacity=capacity)
+        pi, pj = cs.kernel_pairs(auxs_c)
+        f1 = feats_c[0].map(lambda x: x[torch.as_tensor(pi, device=dev)].contiguous())
+        f2 = feats_c[1].map(lambda x: x[torch.as_tensor(pj, device=dev)].contiguous())
+        inv = fr.FusedInvariantStatics(cos_min=cfg_c.cos_min, cos_max=cfg_c.cos_max,
+                                       max_clique=cfg_c.max_clique)
+        valid = (f1.valid[:, :, None] & f2.valid[:, None, :]).float().contiguous()
+        a_args = (f1.ratio_feats, f1.descriptors, f2.ratio_feats, f2.descriptors,
+                  valid, inv)
+        hl, nz, single, vflat = fr.assoc_terms_plain(*a_args)
+        b_args = (f1.centers, f2.centers, hl, nz, single, vflat, inv)
+        for P in ((32, 3) if capacity == cs.CAPACITY else (32,)):
+            ap = tuple(x[:P].contiguous() for x in a_args[:5]) + (inv,)
+            bp = tuple(x[:P].contiguous() for x in b_args[:6]) + (inv,)
+            key = f"p{P}" + ("" if capacity == cs.CAPACITY else f"_cap{capacity}")
+            out[f"assoc_terms_{key}_ms"] = device_ms(
+                lambda: fr.assoc_terms(*ap), 10, "assoc_terms_kernel")
+            out[f"build_affinity_{key}_ms"] = device_ms(
+                lambda: fr.build_affinity(*bp), 10, "build_affinity_kernel")
+        if capacity == cs.CAPACITY:
+            out["sha256_assoc_terms_p32"] = digest(*fr.assoc_terms(*a_args))
+            out["sha256_build_affinity_p32"] = digest(fr.build_affinity(*b_args))
+            feats, auxs, cfg = feats_c, auxs_c, cfg_c
+            M, v_main = fr.build_affinity_plain(*b_args), vflat
+        del f1, f2, a_args, b_args, ap, bp
+    n = m = cs.CAPACITY
     for name, P, params in (("p32", 32, ClipperSolveParams()),
                             ("p1", 1, ClipperSolveParams()),
                             ("p8", 8, ClipperSolveParams()),
                             ("rescue_p8", 8, RESCUE_SOLVER)):
-        Mp, vp = M[:P].contiguous(), vflat[:P].contiguous()
-        ms = cs.cuda_ms(lambda: clipper_solve(Mp, vp, n, m, params), 10)
+        Mp, vp = M[:P].contiguous(), v_main[:P].contiguous()
+        ms = device_ms(lambda: clipper_solve(Mp, vp, n, m, params), 10,
+                       "clipper_solve_kernel")
         passes = params.warmup_iters + params.outer_iters * (params.inner_iters + 1) + 1
         out[name] = {"ms": ms, "GB/s": passes * Mp.numel() * 2 / ms / 1e6}
     del M

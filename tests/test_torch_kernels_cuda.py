@@ -12,13 +12,17 @@ Tolerances:
 - assoc_terms: scores and single scores within 1e-5 (the cosine's f32 dot
   sums in another order than the twin's matrix product), flags equal;
 - build_affinity: at most one bf16 ulp per entry (expf/logf/sqrtf may
-  differ from PyTorch's in the last f32 bit before the bf16 rounding);
+  differ from PyTorch's in the last f32 bit before the bf16 rounding); 0
+  ulps on the edge cases, as on the bench chunk;
 - clipper_solve: u within 2e-3, d, F and omega within rtol 1e-3 (the
   kernel splits each matvec's sums into column slices and row segments,
   the twin's matrix product sums in its own order); two launches on the
-  same inputs bitwise equal;
+  same inputs bitwise equal (so are two launches of assoc_terms and of
+  build_affinity);
 - round_refine and the whole fused path: selections and counts equal.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -47,10 +51,13 @@ def dev():
 
 
 def _features(dev, P=8, cap1=CAP, cap2=CAP, seed=0):
-    """Padded features of P sim pair problems with 25 common objects."""
+    """Padded features of P sim pair problems with 25 common objects (fewer
+    below capacity 27), one padded slot each."""
     rng = np.random.default_rng(seed)
-    probs = [world.make_pair_problem(rng, n_common=25, n_only1=cap1 - 26,
-                                     n_only2=cap2 - 26, desc_dim=DESC)
+    common = min(25, cap1 - 2, cap2 - 2)
+    probs = [world.make_pair_problem(rng, n_common=common,
+                                     n_only1=cap1 - 1 - common,
+                                     n_only2=cap2 - 1 - common, desc_dim=DESC)
              for _ in range(P)]
 
     def pad(x, cap):
@@ -231,3 +238,95 @@ def test_fused_register_matches_plain_at_larger_capacities(dev, cap):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     torch.testing.assert_close(k[2], p[2], rtol=0, atol=2e-3)
     assert (k[1] >= 4).all()
+
+
+def _valid(f1, f2):
+    return (f1.valid[:, :, None] & f2.valid[:, None, :]).float().contiguous()
+
+
+def _assert_assoc_close(k, p):
+    torch.testing.assert_close(torch.exp(2 * k[0]) * k[1],
+                               torch.exp(2 * p[0]) * p[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(k[2], p[2], rtol=0, atol=1e-5)
+    assert torch.equal(k[1], p[1]) and torch.equal(k[3], p[3])
+
+
+# name: (P, cap1, cap2, features F and D kept, what else changes)
+ASSOC_CASES = {
+    "d33": (4, CAP, CAP, None, 33, None),
+    "d0_cosine_on": (4, CAP, CAP, None, 0, None),
+    "f0": (4, CAP, CAP, 0, None, "no_ratio"),
+    "d0_f0": (4, CAP, CAP, 0, 0, "no_terms"),
+    "zero_norm": (4, 39, 35, None, None, "zero_norm"),
+    "p1": (1, CAP, CAP, None, None, None),
+    "p33": (33, CAP, CAP, None, None, None),
+    "m70_two_passes": (2, 13, 70, None, None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(ASSOC_CASES))
+def test_assoc_terms_matches_plain_on_edge_cases(dev, case):
+    """D not a multiple of 4 (one-float copies), D = 0 (every descriptor
+    missing), F = 0 and D = 0 with their terms off as the fused path sets
+    them, zero-norm descriptors, 1 and 33 pairs, and m = 70 (two passes
+    over the columns)."""
+    P, cap1, cap2, F, D, what = ASSOC_CASES[case]
+    f1, f2 = _features(dev, P=P, cap1=cap1, cap2=cap2, seed=len(case))
+    r1, r2 = f1.ratio_feats[..., :F].contiguous(), f2.ratio_feats[..., :F].contiguous()
+    d1, d2 = f1.descriptors[..., :D].contiguous(), f2.descriptors[..., :D].contiguous()
+    inv = INV
+    if what == "no_ratio":
+        inv = dataclasses.replace(INV, use_ratio=False)
+    elif what == "no_terms":
+        inv = dataclasses.replace(INV, use_ratio=False, use_cosine=False)
+    elif what == "zero_norm":
+        d1[:, ::3] = 0.0
+        d2[:, 1::4] = 0.0
+    args = (r1, d1, r2, d2, _valid(f1, f2), inv)
+    _assert_assoc_close(fr.assoc_terms(*args), fr.assoc_terms_plain(*args))
+
+
+# name: (P, cap1, cap2, invariant changes, invalid rows)
+BUILD_CASES = {
+    "n_ne_m": (4, 40, 23, {}, False),
+    "misaligned_13x7": (4, 13, 7, {}, False),
+    "capacity64": (2, 64, 64, {}, False),
+    "no_gravity": (4, CAP, CAP, {"gravity": False}, False),
+    "terms0": (4, CAP, CAP, {"use_ratio": False, "use_cosine": False}, False),
+    "terms1": (4, CAP, CAP, {"use_ratio": False}, False),
+    "terms2": (4, CAP, CAP, {}, False),
+    "invalid_rows": (4, CAP, CAP, {}, True),
+    "p1": (1, CAP, CAP, {}, False),
+    "p3": (3, CAP, CAP, {}, False),
+    "p33": (33, CAP, CAP, {}, False),
+}
+
+
+@pytest.mark.parametrize("case", list(BUILD_CASES))
+def test_build_affinity_bitwise_on_edge_cases(dev, case):
+    """0 bf16 ulps against the twin: n != m, N = 91 (rows not 16-byte
+    aligned: 2-byte stores), capacity 64 (more than 48 KB of shared
+    memory), gravity off, 0, 1 and 2 terms, invalid rows and an all-invalid
+    pair, and 1, 3 and 33 pairs."""
+    P, cap1, cap2, changes, invalid = BUILD_CASES[case]
+    f1, f2 = _features(dev, P=P, cap1=cap1, cap2=cap2, seed=len(case))
+    if invalid:
+        f1.valid[:, 5:9] = False
+        f2.valid[0, :] = False
+    inv = dataclasses.replace(INV, **changes)
+    terms = fr.assoc_terms_plain(f1.ratio_feats, f1.descriptors, f2.ratio_feats,
+                                 f2.descriptors, _valid(f1, f2), inv)
+    args = (f1.centers, f2.centers, *terms, inv)
+    M_k, M_p = fr.build_affinity(*args), fr.build_affinity_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(M_k.view(torch.int16), M_p.view(torch.int16))
+    if invalid:
+        assert (M_k[0] == 0).all()
+
+
+def test_assoc_terms_and_build_affinity_are_deterministic(stages):
+    a, b = fr.assoc_terms(*stages["assoc"]), fr.assoc_terms(*stages["assoc"])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    M_a, M_b = fr.build_affinity(*stages["build"]), fr.build_affinity(*stages["build"])
+    torch.cuda.synchronize()
+    assert torch.equal(M_a.view(torch.int16), M_b.view(torch.int16))
