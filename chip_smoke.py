@@ -19,13 +19,15 @@ N = 1600 candidate associations each), and then:
    times both: a call of the kernel's wrapper and of the twin with CUDA
    events (``ms``), and the kernel's own device time from torch.profiler
    (``device_ms``, without the host's work between short launches);
-   prints the ptxas lines of assoc_terms and build_affinity, a yardstick
-   beside assoc_terms (one f32 torch.bmm of the descriptors, TF32 off),
-   and the bf16 ulp histogram of build_affinity against its twin with
-   the nonzero share of M; holds and times the CLIPPER solve also on 1
-   and 8 pairs and at the rescue budget (pairs, blocks per pair, GB/s of
-   M streamed), beside a yardstick: one torch.bmm of bf16 u by M, times
-   the solve's matvec count;
+   prints the ptxas lines of assoc_terms, build_affinity and round_refine,
+   a yardstick beside assoc_terms (one f32 torch.bmm of the descriptors,
+   TF32 off), C and K per pair beside round_refine (entries above the
+   rounding's cut, entries it selects), and the bf16 ulp histogram of
+   build_affinity against its twin with the nonzero share of M; holds
+   and times the CLIPPER solve also on 1 and 8 pairs and at the rescue
+   budget (pairs, blocks per pair, GB/s of M streamed), beside a
+   yardstick: one torch.bmm of bf16 u by M, times the solve's matvec
+   count;
 3. runs the alignment stage through its entry point ``submap_align`` from
    map pickles, with every launch count set to 0 just before and read just
    after, and checks the artifacts it writes;
@@ -36,7 +38,8 @@ N = 1600 candidate associations each), and then:
    card over the first 100 pairs, and loop-closure precision/recall
    against the sim ground truth;
 5. registers 16 pairs with arithmetic-mean fusion, which reaches the
-   CLIPPER solve kernel directly, against the plain path;
+   CLIPPER solve and round_refine kernels through ``solve_and_round``,
+   against the plain path;
 6. prints one JSON line of per-kernel numbers, the card's name and power
    limit again, and last {"ok": true, "device": {...}}.
 
@@ -218,16 +221,19 @@ def lc_quality_from_lists(ok, count, T_align, T_ij_all, min_assoc=4,
 def plain_path():
     """Route registration through the plain twins, on whatever device the
     tensors are: the reference the kernels are held against on the card.
-    Swaps the two names the registration path looks up for its kernels."""
+    Swaps the three names the registration path looks up for its kernels."""
     from roman_tpu_torch.align import clipper_solve, fused_register, registration
 
-    saved = registration.fused_register, clipper_solve.clipper_solve
+    saved = (registration.fused_register, clipper_solve.clipper_solve,
+             fused_register.round_refine)
     registration.fused_register = fused_register.fused_register_plain
     clipper_solve.clipper_solve = clipper_solve.clipper_solve_plain
+    fused_register.round_refine = fused_register.round_refine_plain
     try:
         yield
     finally:
-        registration.fused_register, clipper_solve.clipper_solve = saved
+        (registration.fused_register, clipper_solve.clipper_solve,
+         fused_register.round_refine) = saved
 
 
 def reset_launches():
@@ -268,7 +274,8 @@ def kernel_pairs(auxs, n_pairs=KERNEL_PAIRS):
 def check_kernels(feats, auxs, cfg, ptxas=(), reps=10, plain_reps=3):
     """Each kernel and its twin on the same inputs, on the card. Returns
     one record per kernel (without launches). ptxas: the build's summary
-    lines, of which those of assoc_terms and build_affinity are repeated."""
+    lines, of which those of assoc_terms, build_affinity and round_refine
+    are repeated."""
     import torch
 
     from roman_tpu_torch.align import clipper
@@ -280,7 +287,8 @@ def check_kernels(feats, auxs, cfg, ptxas=(), reps=10, plain_reps=3):
     from scripts.time_solve import device_ms
 
     for line in ptxas:
-        if line.startswith(("assoc_terms_kernel", "build_affinity_kernel")):
+        if line.startswith(("assoc_terms_kernel", "build_affinity_kernel",
+                            "round_refine_kernel")):
             print("ptxas: " + line, flush=True)
     pi, pj = kernel_pairs(auxs)
     dev = feats[0].centers.device
@@ -408,15 +416,25 @@ def check_kernels(feats, auxs, cfg, ptxas=(), reps=10, plain_reps=3):
     torch.cuda.synchronize()
     same = torch.equal(r_k[0], r_p[0]) and torch.equal(r_k[1], r_p[1])
     err = (r_k[0].float() - r_p[0].float()).abs().max().item()
-    print(f"round_refine: sel and count equal {same}; counts "
-          f"{r_k[1].tolist()}", flush=True)
-    require(same, "round_refine disagrees with its twin")
     # what this run's data needs: u, F, omega in, sel and count out, and
-    # the K x K entries of M among the K associations rounding selected
+    # the K x K entries of M among the K associations rounding selected;
+    # the max of u and the cut test (2 N operations), and in each refinement
+    # iteration an add, a test and a count for each of the K x K entries.
+    # C entries lie above the cut: the keys the kernel sorts
     max_steps = min(inv.max_clique, n, m)
     _, k_round = clipper.round_greedy(u.reshape(P, n, m), Fv, max_steps,
                                       inv.rel_thresh)
-    m_bytes = 2.0 * float((k_round.double() ** 2).sum())
+    n_cut = ((u > inv.rel_thresh * u.amax(dim=1, keepdim=True)) & (u > 0)).sum(1)
+
+    def spread(x):
+        x = x.double()
+        return f"{int(x.min())}/{float(x.median()):g}/{int(x.max())}"
+
+    print(f"round_refine: sel and count equal {same}; counts "
+          f"{r_k[1].tolist()}; per pair (min/median/max) C {spread(n_cut)}, "
+          f"K {spread(k_round)}", flush=True)
+    require(same, "round_refine disagrees with its twin")
+    kk_sum = float((k_round.double() ** 2).sum())
     records.append(dict(
         name="round_refine", max_abs_err=err,
         ms=cuda_ms(lambda: fr.round_refine(M_p, u, Fv, om, n, m, inv), reps),
@@ -424,8 +442,8 @@ def check_kernels(feats, auxs, cfg, ptxas=(), reps=10, plain_reps=3):
                             reps, "round_refine_kernel"),
         plain_ms=cuda_ms(lambda: fr.round_refine_plain(M_p, u, Fv, om, n, m, inv),
                          plain_reps),
-        bound=bound(nbytes(u, Fv, om, *r_k) + m_bytes,
-                    f32_ops=P * max_steps * 3.0 * N)))
+        bound=bound(nbytes(u, Fv, om, *r_k) + 2.0 * kk_sum,
+                    f32_ops=2.0 * P * N + inv.refine_iters * 3.0 * kk_sum)))
     for r in records:
         print(f"{r['name']}: kernel {r['ms']:.4f} ms a call by CUDA events "
               f"({r['device_ms']:.4f} ms of device time), plain {r['plain_ms']:.4f} ms, "
@@ -611,7 +629,7 @@ def run_grid(feats, auxs, runs, cfg, repeats=3):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: arithmetic-mean fusion drives the solve kernel directly
+# phase 5: arithmetic-mean fusion drives the solve and round_refine kernels
 # ---------------------------------------------------------------------------
 
 def run_arithmetic_mean(feats, auxs, cfg):
@@ -637,7 +655,8 @@ def run_arithmetic_mean(feats, auxs, cfg):
     print(f"arithmetic-mean fusion, {len(pi)} pairs: launches {counts}, sel "
           f"and count equal to the plain path {same}, max |du| {du:.3e}, "
           f"counts {out.count.tolist()}", flush=True)
-    require(counts["clipper_solve"] > 0, "the solve kernel was not launched")
+    require(counts["clipper_solve"] > 0 and counts["round_refine"] > 0,
+            "the solve or the round_refine kernel was not launched")
     require(same and du <= 2e-3, "arithmetic-mean fusion disagrees with the plain path")
 
 

@@ -177,25 +177,30 @@ def refine_selection_2d(M: torch.Tensor, sel: torch.Tensor, iters: int = 6,
 def solve_and_round(M4: torch.Tensor, valid: torch.Tensor, max_clique: int,
                     params: ClipperSolveParams = ClipperSolveParams()):
     """Solve + greedy rounding + support refinement on a 4D affinity
-    (roman_tpu/align/clipper.py:397-432). The solve launches the CLIPPER
-    solve kernel for CUDA tensors and runs the plain solve for CPU
-    tensors; rounding and refinement are plain.
+    (roman_tpu/align/clipper.py:397-432). For CUDA tensors the solve
+    launches the CLIPPER solve kernel and the rounding and refinement the
+    round_refine kernel (``align.fused_register``, at its defaults, which
+    are round_greedy's and refine_selection_2d's); for CPU tensors both
+    run plain.
 
     The rounding cap uses the penalized F; the refine target uses the
     unpenalized omega = u'Mu, which the solve returns.
     Returns sel (..., n, m) bool, count (...) int32, u (..., n, m), F (...).
     """
-    from roman_tpu_torch.align.clipper_solve import clipper_solve
+    from roman_tpu_torch.align import clipper_solve, fused_register
 
     n, m = M4.shape[-4], M4.shape[-3]
     batch = M4.shape[:-4]
     N = n * m
-    M = prepare_matrix(M4)
-    u, _, F, omega = clipper_solve(
-        M.reshape((-1, N, N)),
-        valid.reshape((-1, N)).to(torch.float32).contiguous(), n, m, params)
-    u = u.reshape(batch + (n, m))
-    F = F.reshape(batch)
-    sel, count = round_greedy(u, F, max_clique)
-    sel, count = refine_selection_2d(M, sel, target=omega.reshape(batch))
-    return sel, count, u, F
+    M = prepare_matrix(M4).reshape((-1, N, N))
+    u, _, F, omega = clipper_solve.clipper_solve(
+        M, valid.reshape((-1, N)).to(torch.float32).contiguous(), n, m, params)
+    if M.device.type == "cpu":
+        sel, count = round_greedy(u.reshape((-1, n, m)), F, max_clique)
+        sel, count = refine_selection_2d(M, sel, target=omega)
+    else:  # at most min(n, m) entries can be selected: the same steps
+        sel, count = fused_register.round_refine(
+            M, u, F, omega, n, m,
+            fused_register.FusedInvariantStatics(max_clique=max_clique))
+    return (sel.reshape(batch + (n, m)), count.reshape(batch),
+            u.reshape(batch + (n, m)), F.reshape(batch))

@@ -435,124 +435,352 @@ build_affinity_kernel(const float* __restrict__ c1, const float* __restrict__ c2
 }
 
 // ---------------------------------------------------------------------------
-// round_refine: one block per pair.
+// round_refine: one block of kRoundThreads per pair.
 //
-// Greedy one-to-one rounding (min(max_clique, n, m) block arg-max steps,
-// lowest index wins a tie; cut 0.35 * max u; target round(2F) clipped to
-// [1, max_steps]) and the support refinement (roman_tpu/align/
-// fused_register.py:481-638). A refine iteration only changes selected
-// entries, and at most max_steps entries are selected, so it reads only the
-// selected rows and columns of M (at most 40 x 40 entries) and needs no
-// (N, N) zero-edge mask. Bounded by the rounding's arg-max steps over u
-// (N floats each, from shared memory) and their block barriers.
+// Greedy one-to-one rounding (cut 0.35 * max u; target round(2F) clipped
+// to [1, max_steps], max_steps when F <= 0) and the support refinement
+// (roman_tpu/align/fused_register.py:481-638; twins clipper.round_greedy
+// and clipper.refine_selection_2d). Bound on this card by latency, not
+// work: a pair has tens of selected entries and a few microseconds of
+// arithmetic, so the design removes serial chains of barriers and of
+// dependent global loads.
+//
+// Rounding as one sorted scan. The greedy takes, max_steps times, the
+// largest u among entries whose row and column are both free (the first
+// index on a tie), if it is above the cut, above 0 and fewer than target
+// are taken. Give each entry above the cut and above 0 the 64-bit key
+// (~bits(u), index): positive floats order as their bits, so ascending
+// keys are u descending, index ascending, a strict total order. Walk the
+// keys in that order and accept an entry when its row and column are free,
+// until target are taken. This is exactly the greedy: at each step its pick
+// is the first free entry in key order (an entry with a larger key than a
+// free entry above the cut is itself above the cut, so it is in the list);
+// an entry the walk passes over already had its row or column taken, and
+// that stays taken; both stop at the cut and at the target; and since a
+// step that takes nothing ends the greedy, its max_steps steps never bind
+// before target <= max_steps does. So the block finds max u (one
+// reduction), compacts the keys above the cut into shared memory (warp
+// ballots, one shared counter), sorts them (bitonic; in one warp's
+// registers for up to 32 keys), and one warp walks them 32 at a time with
+// row and column occupancy as bitmasks: no barrier and no integer division
+// a step. Where more keys lie above the cut than a band holds
+// (kRoundBandKeys), they are taken in bands of consecutive keys, each
+// band's end found by a binary search on the key; never at N <= 4096.
+//
+// Refinement on a K x K tile. The K selected indices are put in index
+// order by a parallel rank, and T[l][k] = M[list[l], list[k]] is gathered
+// into shared memory once, all K^2 loads in flight together. One warp then
+// runs the iterations from the tile: support and zero-edge counts a lane
+// per column (sums over l ascending; the columns a lane takes, 1 to 8, are
+// a template argument: with a branch for each of 8 column slots the kernel
+// took 3.3x as long on an H100 at the bench shapes), k by ballots, the mean
+// support by a sum over k ascending, the worst entry by a warp arg-min
+// (first minimum). Every sum whose bits decide a drop is taken in one fixed
+// order, l then k ascending.
 // ---------------------------------------------------------------------------
-constexpr int kMaxSteps = 256;
+constexpr int kRoundThreads = 256;
+constexpr int kRoundMaxSide = 256;                  // n, m, max_steps at most
+constexpr int kRoundWords = kRoundMaxSide / 32;     // occupancy bitmask words
+constexpr int kRoundBandKeys = 4096;                // sorted keys a band, at most
+constexpr unsigned long long kNoKey = ~0ull;        // above every key
 
-__global__ void __launch_bounds__(256)
+// Keys a band holds: the next power of two of N, at most kRoundBandKeys.
+inline int round_band(int N) {
+  int b = 1;
+  while (b < N && b < kRoundBandKeys) b <<= 1;
+  return b;
+}
+
+// (~bits(u), j): ascending keys are u descending, index ascending. Only
+// for u > 0, so no key reaches kNoKey.
+__device__ __forceinline__ unsigned long long round_key(float v, int j) {
+  return ((unsigned long long)(~__float_as_uint(v)) << 32) | (unsigned)j;
+}
+
+// Append the keys in (lo, hi] of the entries above the cut to keys[], at
+// most `band` of them; every thread adds to *n_keys the number it found.
+__device__ __forceinline__ void round_compact(const float* U, int N, float cut,
+                                              unsigned long long lo,
+                                              unsigned long long hi,
+                                              unsigned long long* keys, int band,
+                                              int* n_keys) {
+  const int lane = threadIdx.x & 31;
+  for (int j0 = 0; j0 < N; j0 += blockDim.x) {
+    const int j = j0 + threadIdx.x;
+    bool cand = false;
+    unsigned long long key = 0;
+    if (j < N) {
+      const float v = U[j];
+      if (v > cut && v > 0.f) {
+        key = round_key(v, j);
+        cand = key > lo && key <= hi;
+      }
+    }
+    const unsigned b = __ballot_sync(0xffffffffu, cand);
+    int base = 0;
+    if (lane == 0 && b) base = atomicAdd(n_keys, __popc(b));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    const int pos = base + __popc(b & ((1u << lane) - 1u));
+    if (cand && pos < band) keys[pos] = key;
+  }
+}
+
+// The smallest key h with at least `band` keys of entries above the cut in
+// (lo, h]; there are more than `band` keys above lo. Every thread calls it.
+__device__ unsigned long long round_band_end(const float* U, int N, float cut,
+                                             unsigned long long lo, int band,
+                                             float* red) {
+  unsigned long long a = lo + 1, b = kNoKey - 1;
+  while (a < b) {
+    const unsigned long long mid = a + (b - a) / 2;
+    float c = 0.f;
+    for (int j = threadIdx.x; j < N; j += blockDim.x) {
+      const float v = U[j];
+      if (v > cut && v > 0.f) {
+        const unsigned long long key = round_key(v, j);
+        c += (key > lo && key <= mid) ? 1.f : 0.f;
+      }
+    }
+    if (roman::block_sum(c, red) >= (float)band) b = mid;
+    else a = mid + 1;
+    __syncthreads();  // red is reused by the next sum
+  }
+  return a;
+}
+
+// Ascending bitonic sort of keys[0, P2), P2 a power of two: by the block
+// in shared memory, or by warp 0 in registers (a key a lane) for P2 <= 32.
+// Every thread calls it.
+__device__ __forceinline__ void round_sort(unsigned long long* keys, int P2) {
+  if (P2 <= 32) {
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    unsigned long long x = lane < P2 ? keys[lane] : kNoKey;
+    for (int k = 2; k <= 32; k <<= 1)
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        const unsigned long long y = __shfl_xor_sync(0xffffffffu, x, j);
+        // the lower lane of a pair keeps the smaller key in an ascending run
+        const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+        x = (x < y) == keep_min ? x : y;
+      }
+    if (lane < P2) keys[lane] = x;
+    __syncwarp();
+    return;
+  }
+  for (int k = 2; k <= P2; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < P2 / 2; i += blockDim.x) {
+        const int x = 2 * i - (i & (j - 1));  // i's pair: x and x + j
+        const unsigned long long a = keys[x], b = keys[x + j];
+        if ((a > b) == ((x & k) == 0)) { keys[x] = b; keys[x + j] = a; }
+      }
+      __syncthreads();
+    }
+}
+
+// The refinement iterations on the K x K tile, by one warp; lane + 32 c is
+// column k, C columns a lane (K <= 32 C). Writes alive[] and the count.
+template <int C>
+__device__ __forceinline__ void round_refine_warp(const __nv_bfloat16* tile, int K,
+                                                  const RoundParams& q, float tgt,
+                                                  unsigned char* alive, float* supp,
+                                                  int* count) {
+  const int lane = threadIdx.x & 31;
+  bool al[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = lane + 32 * c;
+    al[c] = k < K;
+    if (k < K) alive[k] = 1;
+  }
+  __syncwarp();
+  for (int it = 0; it < q.refine_iters; ++it) {
+    int kc = 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) kc += __popc(__ballot_sync(0xffffffffu, al[c]));
+    const float kk = (float)kc;
+    float mv[C], z[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) { mv[c] = 0.f; z[c] = 0.f; }
+    // over l ascending, a fixed order; a lane past K reads column
+    // K - 1 and discards it
+#pragma unroll 4
+    for (int l = 0; l < K; ++l) {
+      const bool a = alive[l];
+      const __nv_bfloat16* row = tile + l * K;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int k = lane + 32 * c;
+        const float e = __bfloat162float(row[min(k, K - 1)]);
+        mv[c] = mv[c] + (a ? e : 0.f);
+        z[c] = z[c] + ((a && l != k && e <= q.edge_eps) ? 1.f : 0.f);
+      }
+    }
+    float sp[C];
+    float wv = INFINITY;
+    int wi = 0x7fffffff;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int k = lane + 32 * c;
+      sp[c] = mv[c] / fmaxf(kk - 1.f, 1.f);
+      if (k < K) supp[k] = sp[c];
+      if (al[c] && z[c] > 0.5f) roman::argmin_merge(wv, wi, sp[c], k);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      roman::argmin_merge(wv, wi, __shfl_xor_sync(0xffffffffu, wv, o),
+                          __shfl_xor_sync(0xffffffffu, wi, o));
+    __syncwarp();
+    float s = 0.f;  // over k ascending, a fixed order
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) s = s + (alive[k] ? supp[k] : 0.f);
+    const float thresh = fmaxf(q.rel_support * (s / fmaxf(kk, 1.f)), q.min_support);
+    const bool drop = wi != 0x7fffffff && kk > tgt;
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int k = lane + 32 * c;
+      al[c] = al[c] && sp[c] >= thresh && !(drop && k == wi);
+      if (k < K) alive[k] = al[c];
+    }
+    __syncwarp();
+  }
+  int kc = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) kc += __popc(__ballot_sync(0xffffffffu, al[c]));
+  if (lane == 0) *count = kc;
+}
+
+__global__ void __launch_bounds__(kRoundThreads)
 round_refine_kernel(const __nv_bfloat16* __restrict__ M_all,
                     const float* __restrict__ u_all, const float* __restrict__ F_all,
                     const float* __restrict__ omega_all,
                     unsigned char* __restrict__ sel_out, int* __restrict__ count_out,
-                    RoundParams q) {
-  extern __shared__ float uu[];  // N
-  __shared__ float redv[33];
-  __shared__ int redi[33];
-  __shared__ int row_free[kMaxSteps], col_free[kMaxSteps];
-  __shared__ int list[kMaxSteps];   // selected indices, in pick order
-  __shared__ int alive[kMaxSteps];
-  __shared__ float supp[kMaxSteps], zc[kMaxSteps];
-  __shared__ int n_sel;
+                    RoundParams q, int band) {
+  // band sorted keys, then the max_steps x max_steps tile of bf16
+  extern __shared__ __align__(16) unsigned char round_smem[];
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(round_smem);
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(keys + band);
+  __shared__ float red[33];
+  __shared__ unsigned row_used[kRoundWords], col_used[kRoundWords];
+  __shared__ int list[kRoundMaxSide];   // selected indices, in pick order
+  __shared__ int order[kRoundMaxSide];  // the same, in index order
+  __shared__ float supp[kRoundMaxSide];
+  __shared__ unsigned char alive[kRoundMaxSide];
+  __shared__ int n_keys, n_sel;
 
-  const int p = blockIdx.x;
+  const int p = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
   const int n = q.n, m = q.m, N = n * m;
+  const float* U = u_all + (size_t)p * N;
   const __nv_bfloat16* M = M_all + (size_t)p * N * N;
+
+  if (tid == 0) { n_keys = 0; n_sel = 0; }
+  if (tid < kRoundWords) { row_used[tid] = 0u; col_used[tid] = 0u; }
   float mx = -INFINITY;
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    uu[j] = u_all[(size_t)p * N + j];
-    mx = fmaxf(mx, uu[j]);
-  }
-  for (int k = threadIdx.x; k < n; k += blockDim.x) row_free[k] = 1;
-  for (int k = threadIdx.x; k < m; k += blockDim.x) col_free[k] = 1;
-  if (threadIdx.x == 0) n_sel = 0;
-  const float cut = q.rel_thresh * roman::block_max(mx, redv);
+  for (int j = tid; j < N; j += blockDim.x) mx = fmaxf(mx, U[j]);
+  const float cut = q.rel_thresh * roman::block_max(mx, red);
   const float Fv = F_all[p];
   const float target = Fv > 0.f
       ? fminf(fmaxf(rintf(Fv * 2.f), 1.f), (float)q.max_steps)
       : (float)q.max_steps;
 
-  // ---- greedy rounding ----
-  for (int step = 0; step < q.max_steps; ++step) {
-    float bv = -INFINITY;
-    int bi = 0x7fffffff;
-    for (int j = threadIdx.x; j < N; j += blockDim.x) {
-      const float cand = (row_free[j / m] && col_free[j % m]) ? uu[j] : -1.f;
-      roman::argmax_merge(bv, bi, cand, j);
-    }
-    float val;
-    const int first = roman::block_argmax(bv, bi, redv, redi, &val);
-    if (threadIdx.x == 0 && val > cut && val > 0.f && (float)n_sel < target) {
-      row_free[first / m] = 0;
-      col_free[first % m] = 0;
-      list[n_sel] = first;
-      alive[n_sel] = 1;
-      n_sel = n_sel + 1;
-    }
+  // ---- rounding: sorted bands of keys, walked by warp 0 ----
+  unsigned long long lo = 0;  // keys <= lo are walked
+  for (;;) {
+    round_compact(U, N, cut, lo, kNoKey, keys, band, &n_keys);
     __syncthreads();
-  }
-
-  // ---- support refinement on the selected set ----
-  if (threadIdx.x == 0) {  // index order, as a full matvec would sum
-    for (int a = 1; a < n_sel; ++a)
-      for (int b = a; b > 0 && list[b - 1] > list[b]; --b) {
-        const int t = list[b]; list[b] = list[b - 1]; list[b - 1] = t;
-      }
-  }
-  __syncthreads();
-  const int K = n_sel;
-  const float tgt = fmaxf(rintf(omega_all[p]), 0.f);
-  for (int it = 0; it < q.refine_iters; ++it) {
-    float kk = 0.f;
-    for (int k = 0; k < K; ++k) kk += alive[k] ? 1.f : 0.f;
-    for (int k = threadIdx.x; k < K; k += blockDim.x) {
-      const int j = list[k];
-      float mv = 0.f, z = 0.f;
-      for (int l = 0; l < K; ++l) {
-        if (!alive[l]) continue;
-        const float e = __bfloat162float(M[(size_t)list[l] * N + j]);
-        mv = mv + e;
-        if (l != k && e <= q.edge_eps) z = z + 1.f;
-      }
-      supp[k] = mv / fmaxf(kk - 1.f, 1.f);
-      zc[k] = z;
+    int c = n_keys;
+    unsigned long long hi = kNoKey;
+    if (c > band) {  // more keys than a band: take the first `band` of them
+      hi = round_band_end(U, N, cut, lo, band, red);
+      if (tid == 0) n_keys = 0;
+      __syncthreads();
+      round_compact(U, N, cut, lo, hi, keys, band, &n_keys);
+      __syncthreads();
+      c = band;
     }
+    if (c == 0) break;
+    int P2 = 1;
+    while (P2 < c) P2 <<= 1;
+    for (int i = c + tid; i < P2; i += blockDim.x) keys[i] = kNoKey;
     __syncthreads();
-    if (threadIdx.x == 0) {
-      float s = 0.f;
-      for (int k = 0; k < K; ++k) s = s + (alive[k] ? supp[k] : 0.f);
-      const float thresh = fmaxf(q.rel_support * (s / fmaxf(kk, 1.f)), q.min_support);
-      int worst = -1;
-      float wv = roman::kBigScore;
-      for (int k = 0; k < K; ++k)
-        if (alive[k] && zc[k] > 0.5f && (worst < 0 || supp[k] < wv)) {
-          worst = k;
-          wv = supp[k];
+    round_sort(keys, P2);
+    if (tid < 32) {
+      int taken = n_sel;
+      for (int b0 = 0; b0 < c && (float)taken < target; b0 += 32) {
+        const int t = b0 + lane;
+        const int j = t < c ? (int)(keys[t] & 0xffffffffu) : 0;
+        const int r = j / m, col = j - r * m;
+        const bool free = t < c && !((row_used[r >> 5] >> (r & 31)) & 1u) &&
+                          !((col_used[col >> 5] >> (col & 31)) & 1u);
+        unsigned cand = __ballot_sync(0xffffffffu, free);
+        unsigned acc = 0u;  // accepted lanes: each is the first free one left
+        const int start = taken;
+        while (cand && (float)taken < target) {
+          const int w = __ffs(cand) - 1;
+          const int rw = __shfl_sync(0xffffffffu, r, w);
+          const int cw = __shfl_sync(0xffffffffu, col, w);
+          acc |= 1u << w;
+          ++taken;
+          cand &= ~__ballot_sync(0xffffffffu, r == rw || col == cw);
         }
-      const bool drop = worst >= 0 && kk > tgt;
-      for (int k = 0; k < K; ++k)
-        alive[k] = alive[k] && supp[k] >= thresh && !(drop && k == worst);
+        if ((acc >> lane) & 1u) {
+          list[start + __popc(acc & ((1u << lane) - 1u))] = j;
+          atomicOr(&row_used[r >> 5], 1u << (r & 31));
+          atomicOr(&col_used[col >> 5], 1u << (col & 31));
+        }
+        __syncwarp();
+      }
+      if (lane == 0) n_sel = taken;
     }
+    __syncthreads();
+    if (hi == kNoKey || (float)n_sel >= target) break;
+    lo = hi;
+    if (tid == 0) n_keys = 0;
     __syncthreads();
   }
 
-  for (int j = threadIdx.x; j < N; j += blockDim.x) sel_out[(size_t)p * N + j] = 0;
-  __syncthreads();
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    if (alive[k]) sel_out[(size_t)p * N + list[k]] = 1;
-  if (threadIdx.x == 0) {
-    int c = 0;
-    for (int k = 0; k < K; ++k) c += alive[k];
-    count_out[p] = c;
+  // ---- index order by rank, then the K x K tile of M ----
+  const int K = n_sel;
+  if (tid < K) {
+    const int me = list[tid];
+    int r = 0;
+    for (int l = 0; l < K; ++l) r += list[l] < me ? 1 : 0;
+    order[r] = me;
   }
+  __syncthreads();
+  const int KK = K * K;
+  for (int e0 = 0; e0 < KK; e0 += 8 * blockDim.x) {
+    __nv_bfloat16 v[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int e = e0 + t * blockDim.x + tid;
+      if (e < KK) {
+        const int l = e / K;
+        v[t] = M[(size_t)order[l] * N + order[e - l * K]];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int e = e0 + t * blockDim.x + tid;
+      if (e < KK) tile[e] = v[t];
+    }
+  }
+  __syncthreads();
+
+  // ---- support refinement, one warp ----
+  if (tid < 32) {
+    const float tgt = fmaxf(rintf(omega_all[p]), 0.f);
+    int* count = count_out + p;
+    if (K <= 32) round_refine_warp<1>(tile, K, q, tgt, alive, supp, count);
+    else if (K <= 64) round_refine_warp<2>(tile, K, q, tgt, alive, supp, count);
+    else if (K <= 128) round_refine_warp<4>(tile, K, q, tgt, alive, supp, count);
+    else round_refine_warp<8>(tile, K, q, tgt, alive, supp, count);
+  }
+
+  for (int j = tid; j < N; j += blockDim.x) sel_out[(size_t)p * N + j] = 0;
+  __syncthreads();
+  if (tid < K && alive[tid]) sel_out[(size_t)p * N + order[tid]] = 1;
 }
 
 }  // namespace
@@ -606,19 +834,22 @@ extern "C" int round_refine_launch(const void* M, const void* u, const void* F,
                                    int refine_iters, float rel_thresh,
                                    float min_support, float rel_support,
                                    float edge_eps, void* stream) {
-  if (n > kMaxSteps || m > kMaxSteps || max_steps > kMaxSteps)
+  static_assert(kRoundThreads >= kRoundMaxSide, "a thread per selected entry");
+  if (n > kRoundMaxSide || m > kRoundMaxSide || max_steps > kRoundMaxSide)
     return (int)cudaErrorInvalidValue;
   RoundParams q{n, m, max_steps, refine_iters, rel_thresh, min_support,
                 rel_support, edge_eps};
-  const size_t smem = sizeof(float) * (size_t)n * m;
+  const int band = round_band(n * m);
+  const size_t smem = sizeof(unsigned long long) * band +
+                      sizeof(__nv_bfloat16) * (size_t)max_steps * max_steps;
   auto kernel = round_refine_kernel;
-  if (smem > 32 * 1024) {
+  if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<P, 256, smem, (cudaStream_t)stream>>>(
+  kernel<<<P, kRoundThreads, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)M, (const float*)u, (const float*)F,
-      (const float*)omega, (unsigned char*)sel, (int*)count, q);
+      (const float*)omega, (unsigned char*)sel, (int*)count, q, band);
   return (int)cudaGetLastError();
 }

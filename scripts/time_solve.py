@@ -12,7 +12,10 @@ it prints one JSON line: the card and its power limit; ``assoc_terms``
 and ``build_affinity`` in ms on 32 and 3 pairs and on 32 pairs at
 capacity 64 (N = 4096), with sha256 digests of their outputs on the
 32-pair chunk (hl, nz, single, vflat; and M built from the plain twin's
-terms), so two checkouts can be compared bit for bit; ``clipper_solve``
+terms), so two checkouts can be compared bit for bit; ``round_refine`` in
+ms on the plain solve's outputs on 32 pairs, on 3 pairs at the rescue
+budget (the rescue launch) and on 32 pairs at capacity 64, with the
+sha256 of its (sel, count) on the 32-pair chunk; ``clipper_solve``
 in ms and GB/s of M streamed (matvecs x bytes of M / time) on 32 pairs at
 the default budget, on 1 and 8 pairs, and on 8 pairs at the rescue
 budget; and PairGridRegistrar pairs/s over the 506-pair grid (best of 3)
@@ -64,7 +67,8 @@ def main() -> int:
     import chip_smoke as cs
     from roman_tpu_torch.align import fused_register as fr
     from roman_tpu_torch.align.clipper import ClipperSolveParams
-    from roman_tpu_torch.align.clipper_solve import clipper_solve
+    from roman_tpu_torch.align.clipper_solve import (clipper_solve,
+                                                     clipper_solve_plain)
     from roman_tpu_torch.align.registration import RESCUE_SOLVER
     from roman_tpu_torch.align.submap_align import PairGridRegistrar
     from roman_tpu_torch.kernels import build
@@ -109,7 +113,21 @@ def main() -> int:
             out["sha256_build_affinity_p32"] = digest(fr.build_affinity(*b_args))
             feats, auxs, cfg = feats_c, auxs_c, cfg_c
             M, v_main = fr.build_affinity_plain(*b_args), vflat
-        del f1, f2, a_args, b_args, ap, bp
+            Mr, shapes = M, ((32, ClipperSolveParams()), (3, RESCUE_SOLVER))
+        else:
+            Mr, shapes = fr.build_affinity(*b_args), ((32, ClipperSolveParams()),)
+        # round_refine on the plain solve's outputs: the main path's chunk, the
+        # rescue launch's 3 pairs at the rescue budget, and capacity 64
+        for P, params in shapes:
+            Mp, vp = Mr[:P].contiguous(), vflat[:P].contiguous()
+            u, _, F, om = clipper_solve_plain(Mp, vp, capacity, capacity, params)
+            r_args = (Mp, u, F, om, capacity, capacity, inv)
+            key = f"p{P}" + ("" if capacity == cs.CAPACITY else f"_cap{capacity}")
+            out[f"round_refine_{key}_ms"] = device_ms(
+                lambda: fr.round_refine(*r_args), 10, "round_refine_kernel")
+            if key == "p32":
+                out["sha256_round_refine_p32"] = digest(*fr.round_refine(*r_args))
+        del f1, f2, a_args, b_args, ap, bp, Mr, Mp, r_args
     n = m = cs.CAPACITY
     for name, P, params in (("p32", 32, ClipperSolveParams()),
                             ("p1", 1, ClipperSolveParams()),

@@ -19,6 +19,7 @@ import torch
 from roman_tpu.align import fused_register as jfr
 from roman_tpu.align import invariants as jinv
 
+from roman_tpu_torch.align import clipper
 from roman_tpu_torch.align import fused_register as tfr
 from roman_tpu_torch.align.clipper import ClipperSolveParams
 from roman_tpu_torch.align.clipper_solve import clipper_solve
@@ -109,3 +110,57 @@ def test_cpu_wrappers_run_the_plain_twins():
     assert tfr.KERNELS[2] is clipper_solve
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def _sorted_scan(u, F, max_steps, rel_thresh=0.35):
+    """The round_refine kernel's rounding, in numpy: the entries above the
+    cut and above 0, sorted by (u descending, index ascending), walked with
+    row and column occupancy, accepted until target are taken."""
+    P, n, m = u.shape
+    flat = u.reshape(P, n * m)
+    sel = np.zeros(flat.shape, bool)
+    for p in range(P):
+        x = flat[p]
+        cut = np.float32(rel_thresh) * x.max()
+        f2 = np.rint(np.float32(F[p]) * np.float32(2.0))
+        target = min(max(f2, 1.0), max_steps) if F[p] > 0 else max_steps
+        idx = np.flatnonzero((x > cut) & (x > 0))
+        rows, cols = set(), set()
+        for j in idx[np.lexsort((idx, -x[idx]))]:
+            if len(rows) >= target:
+                break
+            r, c = divmod(int(j), m)
+            if r not in rows and c not in cols:
+                rows.add(r)
+                cols.add(c)
+                sel[p, j] = True
+    return sel.reshape(P, n, m)
+
+
+# name: (n, m, u quantum (0: no planted ties), F of the 4 pairs)
+SCAN_CASES = {
+    "ties_square": (7, 7, 4, (2.0, 3.3, 0.6, 9.0)),
+    "ties_n_gt_m": (9, 5, 3, (1.2, 2.0, 4.0, 0.9)),
+    "ties_n_lt_m": (4, 11, 8, (5.0, 0.2, 1.6, 2.5)),
+    "all_equal": (6, 8, 1, (2.0, 1.0, 3.0, 40.0)),
+    "F_nonpositive": (8, 6, 4, (0.0, -1.0, -0.5, 0.0)),
+    "no_ties": (10, 7, 0, (3.0, 2.4, 0.74, 6.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_rounding_is_one_sorted_scan(case):
+    """The round_refine kernel rounds by one sorted scan; it selects what
+    clipper.round_greedy's arg-max steps select, ties and all."""
+    n, m, q, F = SCAN_CASES[case]
+    rng = np.random.default_rng(len(case))
+    u = rng.uniform(size=(4, n, m)).astype(np.float32)
+    if q:
+        u = (np.round(u * q) / q).astype(np.float32)
+    u[1, 0, :] = u[1, :, 0].max()  # a tie across a row and down a column
+    F = np.asarray(F, np.float32)
+    max_steps = min(5, n, m)
+    sel, count = clipper.round_greedy(torch.tensor(u), torch.tensor(F), max_steps)
+    want = _sorted_scan(u, F, max_steps)
+    np.testing.assert_array_equal(sel.numpy(), want)
+    np.testing.assert_array_equal(count.numpy(), want.sum(axis=(1, 2)))

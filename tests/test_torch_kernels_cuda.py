@@ -19,7 +19,8 @@ Tolerances:
   the twin's matrix product sums in its own order); two launches on the
   same inputs bitwise equal (so are two launches of assoc_terms and of
   build_affinity);
-- round_refine and the whole fused path: selections and counts equal.
+- round_refine, the whole fused path and arithmetic-mean registration:
+  selections and counts equal.
 """
 
 import dataclasses
@@ -28,12 +29,14 @@ import numpy as np
 import pytest
 import torch
 
+from roman_tpu_torch.align import clipper_solve as cs_mod
 from roman_tpu_torch.align import fused_register as fr
+from roman_tpu_torch.align import registration
 from roman_tpu_torch.align.clipper import ClipperSolveParams
 from roman_tpu_torch.align.clipper_solve import (clipper_solve,
                                                  clipper_solve_plain,
                                                  cluster_size)
-from roman_tpu_torch.align.registration import rescue_solver
+from roman_tpu_torch.align.registration import RegistrationConfig, rescue_solver
 from roman_tpu_torch.align.invariants import SubmapFeatures
 from roman_tpu_torch.sim import world
 
@@ -330,3 +333,115 @@ def test_assoc_terms_and_build_affinity_are_deterministic(stages):
     M_a, M_b = fr.build_affinity(*stages["build"]), fr.build_affinity(*stages["build"])
     torch.cuda.synchronize()
     assert torch.equal(M_a.view(torch.int16), M_b.view(torch.int16))
+
+
+def _round_inputs(dev, P, n, m, seed, u=None, F=None):
+    """Random rounding inputs on the card: u with many ties (multiples of
+    1/4, so equal values across rows and across columns), M uniform in
+    [0.2, 1] with 30% zero entries (zero edges for the refinement), F and
+    omega uniform."""
+    rng = np.random.default_rng(seed)
+    N = n * m
+    if u is None:
+        u = np.round(rng.uniform(size=(P, N)) * 4) / 4
+    M = rng.uniform(0.2, 1.0, size=(P, N, N))
+    M[rng.uniform(size=M.shape) < 0.3] = 0.0
+    if F is None:
+        F = rng.uniform(1, 8, size=P)
+    om = rng.uniform(0, 8, size=P)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+    return (t(M).to(torch.bfloat16), t(np.broadcast_to(u, (P, N))).contiguous(),
+            t(F), t(om), n, m, INV)
+
+
+def _sim_round_inputs(dev, P, n, m, seed, params=ClipperSolveParams()):
+    """Sim pair problems solved by the plain solve, as on the main path."""
+    M, vflat = _prepared(dev, P=P, cap1=n, cap2=m, seed=seed)
+    u, _, F, om = clipper_solve_plain(M, vflat, n, m, params)
+    return M, u, F, om, n, m, INV
+
+
+def _many_selected(dev, equal_u=False):
+    """n = m = 100 (N = 10000, M of 200 MB), max_clique 100: u plants a
+    permutation at 0.9-1.0 over 4200 or so other entries above the cut
+    (uniform in [0, 0.62)), F = 50 (target 100), so rounding selects 100
+    entries after sorting more keys than a band holds; M is zero but for
+    the planted block (uniform [0.2, 1], 30% zeros). With equal_u every u
+    is 0.5, 10000 keys ordered by index alone, and the block is planted on
+    the diagonal entries (i, i) that rounding then selects."""
+    n = m = 100
+    N = n * m
+    rng = np.random.default_rng(100)
+    perm = np.arange(m) if equal_u else rng.permutation(m)
+    planted = np.arange(n) * m + perm
+    u = rng.uniform(0, 0.62, size=N)
+    u[planted] = rng.uniform(0.9, 1.0, size=n)
+    if equal_u:
+        u[:] = 0.5
+    block = rng.uniform(0.2, 1.0, size=(n, n))
+    block[rng.uniform(size=block.shape) < 0.3] = 0.0
+    M = torch.zeros((1, N, N), dtype=torch.bfloat16, device=dev)
+    idx = torch.tensor(planted, device=dev)
+    M[0, idx[:, None], idx[None, :]] = torch.tensor(
+        block, dtype=torch.float32, device=dev).to(torch.bfloat16)
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+    return (M, t(u[None]), t([50.0]), t([60.0]), n, m,
+            dataclasses.replace(INV, max_clique=100))
+
+
+# name: inputs on the card (M, u, F, omega, n, m, inv)
+ROUND_CASES = {
+    "ties_12x9": lambda dev: _round_inputs(dev, 4, 12, 9, 1),
+    "all_equal_u": lambda dev: _round_inputs(dev, 2, 13, 7, 2, u=0.5),
+    "all_zero_u": lambda dev: _round_inputs(dev, 2, 13, 7, 3, u=0.0),
+    "negative_u": lambda dev: _round_inputs(dev, 2, 13, 7, 4, u=-0.25),
+    "F_nonpositive": lambda dev: _round_inputs(dev, 2, 13, 7, 5, F=[0.0, -3.0]),
+    "F_target_1": lambda dev: _round_inputs(dev, 2, 13, 7, 6, F=[0.3, 0.74]),
+    "n_1": lambda dev: _round_inputs(dev, 3, 1, 9, 7),
+    "m_1": lambda dev: _round_inputs(dev, 3, 9, 1, 8),
+    "sim_13x7": lambda dev: _sim_round_inputs(dev, 3, 13, 7, 9),
+    "capacity64": lambda dev: _sim_round_inputs(dev, 2, 64, 64, 64),
+    "rescue_p3": lambda dev: _sim_round_inputs(
+        dev, 3, CAP, CAP, 3, rescue_solver(ClipperSolveParams())),
+    "k_over_64_n100": lambda dev: _many_selected(dev),
+    "equal_u_n100": lambda dev: _many_selected(dev, equal_u=True),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUND_CASES))
+def test_round_refine_matches_plain_on_edge_cases(dev, case):
+    """sel and count equal to the twin on inputs chosen to break a sorted
+    scan: ties across rows and columns, all-equal u, every u at or below
+    the cut, F <= 0 and F giving target 1, n != m and n or m = 1, capacity
+    64 (max_steps 64), sim pairs at 13 x 7 and at the rescue budget (the
+    rescue launch's 3 pairs), and K > 64 selected at
+    n = m = 100 with more keys above the cut than a band holds."""
+    M, u, F, om, n, m, inv = ROUND_CASES[case](dev)
+    k = fr.round_refine(M, u, F, om, n, m, inv)
+    p = fr.round_refine_plain(M, u, F, om, n, m, inv)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    if case in ("all_zero_u", "negative_u"):
+        assert (k[1] == 0).all()
+    if case.endswith("n100"):
+        assert k[1].item() > 64
+
+
+def test_arithmetic_mean_registration_reaches_round_refine(dev, monkeypatch):
+    """register_clipper with arithmetic-mean fusion launches the solve and
+    round_refine kernels and selects as the plain path does."""
+    f1, f2 = _features(dev, P=4, seed=11)
+    cfg = RegistrationConfig(method="roman", cos_min=0.5, cos_max=0.9,
+                             fusion="arithmetic_mean")
+    before = (clipper_solve.launches, fr.round_refine.launches)
+    out = registration.register_clipper(f1, f2, cfg)
+    torch.cuda.synchronize()
+    assert clipper_solve.launches > before[0] and fr.round_refine.launches > before[1]
+    monkeypatch.setattr(cs_mod, "clipper_solve", clipper_solve_plain)
+    monkeypatch.setattr(fr, "round_refine", fr.round_refine_plain)
+    ref = registration.register_clipper(f1, f2, cfg)
+    assert torch.equal(out.sel, ref.sel) and torch.equal(out.count, ref.count)
+    torch.testing.assert_close(out.u, ref.u, rtol=0, atol=2e-3)

@@ -165,6 +165,29 @@ def test_wrappers_launch_for_non_cpu_tensors_and_raise_on_a_failed_launch(
     assert [k.launches for k in tfr.KERNELS] == before
 
 
+def test_solve_and_round_rounds_through_the_kernel_off_the_cpu(
+        failing_launch, monkeypatch):
+    """For a tensor that is not on the CPU, solve_and_round's rounding and
+    refinement launch the round_refine kernel, looked up at call time;
+    the plain twins never run."""
+    from roman_tpu_torch.align import clipper
+    from roman_tpu_torch.align import clipper_solve as cs_mod
+
+    P, n, m = 2, 4, 3
+    N = n * m
+
+    def solve(M, valid, n_, m_, params):
+        return _meta(P, N), _meta(P), _meta(P), _meta(P)
+
+    monkeypatch.setattr(cs_mod, "clipper_solve", solve)
+    monkeypatch.setattr(clipper, "round_greedy", None)
+    monkeypatch.setattr(clipper, "refine_selection_2d", None)
+    with pytest.raises(RuntimeError, match="round_refine: CUDA launch failed"):
+        clipper.solve_and_round(_meta(P, n, m, n, m), _meta(P, n, m, dtype=torch.bool),
+                                max_clique=64)
+    assert [c[1] for c in failing_launch] == ["round_refine_launch"]
+
+
 def test_wrappers_check_their_inputs(failing_launch):
     P, n, m = 2, 4, 3
     N = n * m
