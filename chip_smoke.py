@@ -40,7 +40,20 @@ N = 1600 candidate associations each), and then:
 5. registers 16 pairs with arithmetic-mean fusion, which reaches the
    CLIPPER solve and round_refine kernels through ``solve_and_round``,
    against the plain path;
-6. prints one JSON line of per-kernel numbers, the card's name and power
+6. registers the grid with clipper+prune (the four kernels with no ratio
+   and no cosine term and a pruned association mask): pairs/s, launch
+   counts, rescued pairs, agreement with the plain path over the first 100
+   pairs, and loop-closure precision/recall;
+7. registers the grid with ransac (4096 hypotheses, seed 0): pairs/s,
+   precision/recall, two card runs equal, and agreement with the port's
+   CPU run on the same seed over the first 100 pairs;
+8. runs the back half of the demo from phase 3's tree (map pickles and
+   align.g2o): odometry g2o files, fusion, combined loop closures, edited
+   information, the robust pose-graph solve on the card (wall time, the
+   idle share of one profiled solve, two solves bitwise equal, the CPU's
+   solve within 1e-2 m with the same rejections), the ATE beside that of
+   odometry alone, and the dense graph's solve;
+9. prints one JSON line of per-kernel numbers, the card's name and power
    limit again, and last {"ok": true, "device": {...}}.
 
 Every check raises on failure, so the script then exits non-zero and
@@ -456,17 +469,23 @@ def check_kernels(feats, auxs, cfg, ptxas=(), reps=10, plain_reps=3):
 # phase 3: the alignment stage through submap_align
 # ---------------------------------------------------------------------------
 
+ROBOTS = ["robot0", "robot1"]
+
+
 def run_main_path(runs, maps, workdir, device):
-    """submap_align from map pickles with GT pose files; checks the
-    artifacts. Returns (launch counts, number of loop closures, seconds)."""
+    """submap_align from map pickles with GT pose files, laid out as the
+    demo's tree (map/<robot>.pkl, align/robot0_robot1/align.*, which phase
+    8 goes on from); checks the artifacts. Returns (launch counts, number
+    of loop closures, seconds)."""
     from roman_tpu_torch.align.submap_align import submap_align
     from roman_tpu_torch.params.submap_align_params import (
         SubmapAlignInputOutput, SubmapAlignParams)
     from roman_tpu_torch.sim import world
 
     inputs, gts = [], []
+    os.makedirs(os.path.join(workdir, "map"))
     for k, (run, m) in enumerate(zip(runs, maps)):
-        pkl = os.path.join(workdir, f"robot{k}.pkl")
+        pkl = os.path.join(workdir, "map", f"{ROBOTS[k]}.pkl")
         m.save(pkl)
         csv = os.path.join(workdir, f"gt{k}.csv")
         world.write_gt_csv(run, csv)
@@ -481,10 +500,9 @@ def run_main_path(runs, maps, workdir, device):
         method="roman", semantics_dim=DESC_DIM, submap_max_size=CAPACITY,
         submap_center_time=float("inf"), submap_pruning_method="time",
         cosine_min=0.5, cosine_max=0.9)
-    out = os.path.join(workdir, "align")
+    out = os.path.join(workdir, "align", "_".join(ROBOTS))
     io = SubmapAlignInputOutput(inputs=inputs, output_dir=out, run_name="align",
-                                input_gt_pose_yaml=gts,
-                                robot_names=["robot0", "robot1"])
+                                input_gt_pose_yaml=gts, robot_names=ROBOTS)
     reset_launches()
     t0 = time.perf_counter()
     res = submap_align(params, io, chunk_size=KERNEL_PAIRS, device=device)
@@ -661,6 +679,292 @@ def run_arithmetic_mean(feats, auxs, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phases 6 and 7: the clipper+prune and ransac methods over the grid
+# ---------------------------------------------------------------------------
+
+def time_grid(cfg, feats, ids, pair_i, pair_j, repeats, seed=0):
+    """PairGridRegistrar over the pairs at the main path's chunk: one
+    warmup call, then pairs/s of the best of `repeats` calls, with the
+    launch counts and the registrar of the last call. Returns (pairs/s,
+    launches, registrar, result of the last call, results of every timed
+    call)."""
+    import torch
+
+    from roman_tpu_torch.align.submap_align import PairGridRegistrar
+
+    def register():
+        reg = PairGridRegistrar(cfg, chunk_size=KERNEL_PAIRS,
+                                device=feats[0].centers.device)
+        return reg, reg(feats[0], feats[1], ids[0], ids[1], pair_i, pair_j,
+                        seed=seed)
+
+    register()
+    torch.cuda.synchronize()
+    best, outs = np.inf, []
+    for _ in range(repeats):
+        reset_launches()
+        t0 = time.perf_counter()
+        reg, res = register()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        outs.append(res)
+    return len(pair_i) / best, read_launches(), reg, res, outs
+
+
+def lc_report(name, res, ref, runs, auxs, pair_i, pair_j, q):
+    """LC-decision agreement of res with ref over the first q pairs, and LC
+    precision/recall of res against the sim ground truth (the rule of
+    lc_quality_from_lists). Returns (agreement, precision, recall)."""
+    lc_a = res.ok[:q] & (res.count[:q] >= 4)
+    lc_b = ref.ok[:q] & (ref.count[:q] >= 4)
+    agree = float(np.mean(lc_a == lc_b))
+    T_ij = gt_relative_poses(auxs, runs, pair_i, pair_j)
+    prec, rec = lc_quality_from_lists(res.ok, res.count, res.T_align, T_ij)
+    print(f"{name}: LC-decision agreement over the first {q} pairs {agree}; "
+          f"LC precision/recall vs sim GT {prec:.4f}/{rec:.4f}; loop closures "
+          f"{int((res.ok & (res.count >= 4)).sum())}", flush=True)
+    require(np.isfinite(res.T_align[res.ok]).all(),
+            f"{name}: a registered pair has a non-finite transform")
+    return agree, prec, rec
+
+
+def run_prune_grid(feats, auxs, runs, cfg, repeats=3):
+    """clipper+prune over the full grid: the fused path's four kernels
+    with no ratio and no cosine term and a pruned association mask, then
+    the roll/pitch check; the rescue re-solves through the same path."""
+    import dataclasses
+
+    pcfg = dataclasses.replace(cfg, method="clipper+prune")
+    pair_i, pair_j = full_grid(feats)
+    ids = [a["seg_ids"] for a in auxs]
+    rate, counts, reg, res, _ = time_grid(pcfg, feats, ids, pair_i, pair_j, repeats)
+    print(f"clipper+prune grid: {len(pair_i)} pairs, {rate:.1f} pairs/s at chunk "
+          f"{KERNEL_PAIRS} (best of {repeats}), launches {counts}, rescued pairs "
+          f"{reg.rescued}, unconverged after rescue {int((~res.converged).sum())}",
+          flush=True)
+    require(all(v > 0 for v in counts.values()),
+            f"clipper+prune did not launch every kernel: {counts}")
+    q = min(QUALITY_PAIRS, len(pair_i))
+    from roman_tpu_torch.align.submap_align import PairGridRegistrar
+    with plain_path():
+        ref = PairGridRegistrar(pcfg, chunk_size=KERNEL_PAIRS,
+                                device=feats[0].centers.device)(
+            feats[0], feats[1], ids[0], ids[1], pair_i[:q], pair_j[:q])
+    agree, prec, rec = lc_report("clipper+prune vs its plain path", res, ref,
+                                 runs, auxs, pair_i, pair_j, q)
+    require(agree == 1.0, "clipper+prune LC decisions differ from the plain path")
+    return dict(pairs_per_s=rate, counts=counts, rescued=reg.rescued,
+                precision=prec, recall=rec)
+
+
+def run_ransac_grid(feats, auxs, runs, cfg, seed=0):
+    """ransac over the full grid (cfg.ransac_iter hypotheses, draws from
+    `seed`): two card runs must select the same associations, and the
+    first 100 pairs must decide as the port's CPU run on the same seed."""
+    import dataclasses
+
+    from roman_tpu_torch.align.submap_align import PairGridRegistrar
+
+    rcfg = dataclasses.replace(cfg, method="ransac")
+    pair_i, pair_j = full_grid(feats)
+    ids = [a["seg_ids"] for a in auxs]
+    rate, counts, _, res, outs = time_grid(rcfg, feats, ids, pair_i, pair_j, 2,
+                                           seed=seed)
+    same = all(np.array_equal(getattr(outs[0], f), getattr(outs[1], f))
+               for f in ("sel", "count", "T_align"))
+    print(f"ransac grid: {len(pair_i)} pairs, S = {rcfg.ransac_iter}, seed {seed}, "
+          f"{rate:.1f} pairs/s at chunk {KERNEL_PAIRS} (best of 2), launches "
+          f"{counts}; two card runs equal {same}", flush=True)
+    require(same, "two ransac runs on the card differ")
+    q = min(QUALITY_PAIRS, len(pair_i))
+    t0 = time.perf_counter()
+    cpu = PairGridRegistrar(rcfg, chunk_size=KERNEL_PAIRS, device="cpu")(
+        *(f.map(lambda x: x.cpu()) for f in feats), ids[0], ids[1],
+        pair_i[:q], pair_j[:q], seed=seed)
+    print(f"ransac on the CPU, first {q} pairs: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    agree, prec, rec = lc_report("ransac vs the CPU", res, cpu, runs, auxs,
+                                 pair_i, pair_j, q)
+    require(agree == 1.0, "ransac LC decisions on the card differ from the CPU's")
+    return dict(pairs_per_s=rate, precision=prec, recall=rec)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the back half of the demo from phase 3's artifacts
+# ---------------------------------------------------------------------------
+
+def solve_file(final_g2o, out_dir, params, device):
+    """rpgo_solve_g2o on `device` (a torch.device) into out_dir; returns
+    (result path, diagnostics dict it printed, wall seconds)."""
+    import ast
+    import io
+
+    import torch
+
+    os.makedirs(out_dir, exist_ok=True)
+    from roman_tpu_torch.rpgo.solver import rpgo_solve_g2o
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = rpgo_solve_g2o(final_g2o, out_dir, params, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    line = [ln for ln in buf.getvalue().splitlines() if ln.startswith("rpgo: ")][-1]
+    return result, ast.literal_eval(line.split("edges, ")[1]), seconds
+
+
+def graph_counts(path):
+    from roman_tpu_torch.rpgo.g2o_io import is_loop_closure, parse_g2o
+
+    g = parse_g2o(path)
+    n_lc = sum(is_loop_closure(e) for e in g.edges)
+    return len(g.vertices), len(g.edges) - n_lc, n_lc
+
+
+def positions(path):
+    from roman_tpu_torch.rpgo.g2o_io import parse_g2o
+
+    g = parse_g2o(path)
+    return np.stack([g.vertices[k][:3] for k in sorted(g.vertices)])
+
+
+def run_back_half(runs, workdir, device):
+    """demo/demo.py:183-302 from map/ and align/robot0_robot1/align.g2o:
+    odometry g2o files (sparse at 2.0 m keyframes and dense), fusion,
+    combined loop closures, edited loop-closure information, the robust
+    solve on the card, and the ATE against the GT csv files; then the same
+    solve on the CPU, a second card solve, and the dense graph."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from roman_tpu_torch.params.offline_rpgo_params import OfflineRPGOParams
+    from roman_tpu_torch.rpgo.combine_loop_closures import combine_loop_closures
+    from roman_tpu_torch.rpgo.evaluate import evaluate
+    from roman_tpu_torch.rpgo.extract_odom import roman_map_pkl_to_g2o
+    from roman_tpu_torch.rpgo.fusion import create_config, g2o_file_fusion
+    from roman_tpu_torch.rpgo.g2o_io import (G2OEdge, edit_g2o_edge_information,
+                                             is_loop_closure)
+    from roman_tpu_torch.rpgo.solver import RPGOSolverParams
+    from roman_tpu_torch.sim import world
+
+    p = OfflineRPGOParams()
+    rpgo = os.path.join(workdir, "offline_rpgo")
+    gt = {}
+    for k, run in enumerate(runs):
+        gt[k] = os.path.join(workdir, f"gt{k}.csv")
+        world.write_gt_csv(run, gt[k])
+    t0 = time.perf_counter()
+    for mode in ("sparse", "dense"):
+        os.makedirs(os.path.join(rpgo, mode))
+    for i, name in enumerate(ROBOTS):
+        for mode, kf in (("sparse", 2.0), ("dense", None)):
+            roman_map_pkl_to_g2o(
+                pkl_file=os.path.join(workdir, "map", f"{name}.pkl"),
+                g2o_file=os.path.join(rpgo, mode, f"{name}.g2o"),
+                time_file=os.path.join(rpgo, mode, f"{name}.time.txt"),
+                robot_id=i, min_keyframe_dist=kf, t_std=p.odom_t_std,
+                r_std=p.odom_r_std)
+    for mode in ("sparse", "dense"):
+        with open(os.path.join(rpgo, mode, "odom_all.time.txt"), "w") as f:
+            for name in ROBOTS:
+                with open(os.path.join(rpgo, mode, f"{name}.time.txt")) as f2:
+                    f.write(f2.read())
+    sparse_all = os.path.join(rpgo, "sparse", "odom_all.g2o")
+    g2o_file_fusion(create_config(ROBOTS, os.path.join(rpgo, "sparse")),
+                    sparse_all, thresh=4)
+    dense_all = os.path.join(rpgo, "dense", "odom_and_lc.g2o")
+    g2o_file_fusion(create_config(ROBOTS, os.path.join(rpgo, "dense"),
+                                  submap_align_dir=os.path.join(workdir, "align"),
+                                  align_file_name="align"),
+                    dense_all, thresh=4)
+    final = os.path.join(rpgo, "odom_and_lc.g2o")
+    time_file = os.path.join(rpgo, "sparse", "odom_all.time.txt")
+    combine_loop_closures(
+        g2o_reference=sparse_all, g2o_extra_lc=dense_all,
+        vertex_times_reference=time_file,
+        vertex_times_extra_lc=os.path.join(rpgo, "dense", "odom_all.time.txt"),
+        output_file=final)
+    dense_final = os.path.join(rpgo, "dense", "odom_and_lc_edited.g2o")
+    for src, dst in ((final, final), (dense_all, dense_final)):
+        with open(src) as f:
+            lines = edit_g2o_edge_information(f.readlines(), p.lc_t_std, p.lc_r_std,
+                                              loop_closures=True)
+        with open(dst, "w") as f:
+            for line in lines:
+                f.write(line + "\n")
+    host_s = time.perf_counter() - t0
+    n_v, n_odom, n_lc = graph_counts(final)
+    print(f"back half: odometry, fusion, combined loop closures and edited "
+          f"information in {host_s:.2f} s (host); sparse graph {n_v} vertices, "
+          f"{n_odom} odometry edges, {n_lc} loop closures", flush=True)
+    require(n_lc > 0, "the fused graph holds no loop closure")
+
+    params = RPGOSolverParams(gnc_iters=p.gnc_iters, gn_iters=p.gn_iters,
+                              pcm_gate=p.pcm_gate)
+    cpu = torch.device("cpu")
+    res1, diag1, wall1 = solve_file(final, os.path.join(rpgo, "card1"), params, device)
+    res2, diag2, wall2 = solve_file(final, os.path.join(rpgo, "card2"), params, device)
+    with open(res1, "rb") as f1, open(res2, "rb") as f2:
+        bitwise = f1.read() == f2.read()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve_file(final, os.path.join(rpgo, "card3"), params, device)
+        prof_wall = time.perf_counter() - t0
+    # the raw device events (kernels, copies, sets): key_averages() would
+    # spend minutes grouping the million host and device events of a solve
+    on_device = [e for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in on_device) / 1e6
+    n_kernels = len(on_device)
+    res_cpu, diag_cpu, wall_cpu = solve_file(final, os.path.join(rpgo, "cpu"),
+                                             params, cpu)
+    ate = evaluate(res1, time_file, gt, output_dir=None)
+    ate_cpu = evaluate(res_cpu, time_file, gt, output_dir=None)
+    odom_only = os.path.join(rpgo, "odometry_only.g2o")
+    with open(final) as f, open(odom_only, "w") as out:
+        for line in f:  # vertices and odometry edges: the graph without LCs
+            tok = line.split()
+            if not tok or tok[0].startswith("#") or (
+                    tok[0] == "EDGE_SE3:QUAT" and is_loop_closure(G2OEdge(
+                        int(tok[1]), int(tok[2]), np.zeros(7), np.zeros(21)))):
+                continue
+            out.write(line)
+    ate_odom = evaluate(odom_only, time_file, gt, output_dir=None)
+    dpos = float(np.abs(positions(res1) - positions(res_cpu)).max())
+    print(f"rpgo (sparse): {diag1}; card solve {wall1:.3f} s and {wall2:.3f} s wall, "
+          f"two card solves bitwise equal {bitwise}; profiled solve {prof_wall:.3f} s "
+          f"wall, device busy {busy:.1f} ms in {n_kernels} device events, idle share "
+          f"{max(0.0, 1 - busy / (prof_wall * 1e3)):.3f}; CPU solve {wall_cpu:.3f} s, "
+          f"{diag_cpu}, max vertex position difference card vs CPU {dpos:.3e} m; "
+          f"ATE {ate:.4f} m (CPU {ate_cpu:.4f} m, odometry alone {ate_odom:.4f} m)",
+          flush=True)
+    require(bitwise, "two card solves wrote different result.g2o")
+    require(diag1 == diag_cpu == diag2,
+            "the card and CPU solves reject different loop closures")
+    require(dpos <= 1e-2, "card and CPU solves place a vertex more than 1e-2 m apart")
+    require(abs(ate - ate_cpu) <= 1e-3, "card and CPU ATE differ by more than 1e-3 m")
+    require(all(np.isfinite([ate, ate_cpu, ate_odom, dpos, busy])),
+            "a back-half number is not finite")
+    require(np.isfinite(positions(res1)).all(), "a solved vertex is not finite")
+
+    dense_time = os.path.join(rpgo, "dense", "odom_all.time.txt")
+    res_d, diag_d, wall_d = solve_file(dense_final, os.path.join(rpgo, "dense_card"),
+                                       params, device)
+    ate_d = evaluate(res_d, dense_time, gt, output_dir=None)
+    n_vd, n_od, n_ld = graph_counts(dense_final)
+    print(f"rpgo (dense): {n_vd} vertices, {n_od} odometry edges, {n_ld} loop "
+          f"closures, {diag_d}; card solve {wall_d:.3f} s wall; ATE {ate_d:.4f} m",
+          flush=True)
+    require(np.isfinite(ate_d) and np.isfinite(positions(res_d)).all(),
+            "the dense solve is not finite")
+    return dict(ate=ate, ate_odometry=ate_odom, wall_s=wall1, idle=1 - busy / (prof_wall * 1e3))
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -694,10 +998,13 @@ def main() -> int:
     records = check_kernels(feats, auxs, cfg, ptxas)
     with tempfile.TemporaryDirectory() as workdir:
         main_counts, _, _ = run_main_path(runs, maps, workdir, dev)
-    require(all(v > 0 for v in main_counts.values()),
-            f"a kernel was not launched on the main path: {main_counts}")
-    run_grid(feats, auxs, runs, cfg)
-    run_arithmetic_mean(feats, auxs, cfg)
+        require(all(v > 0 for v in main_counts.values()),
+                f"a kernel was not launched on the main path: {main_counts}")
+        run_grid(feats, auxs, runs, cfg)
+        run_arithmetic_mean(feats, auxs, cfg)
+        run_prune_grid(feats, auxs, runs, cfg)
+        run_ransac_grid(feats, auxs, runs, cfg)
+        run_back_half(runs, workdir, dev)
 
     sources = {"clipper_solve": "roman_tpu_torch/csrc/clipper_solve.cu"}
     replaces = {"clipper_solve": "roman_tpu/align/clipper_pallas.py:50"}

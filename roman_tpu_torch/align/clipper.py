@@ -9,10 +9,11 @@ M - d*Cb while the penalty d grows until no active violation remains
 rank-structured, (Cb u)[a,b] = rowsum(U)[a] + colsum(U)[b] - 2 U[a,b], so
 no constraint matrix is ever built.
 
-The functions here are the plain PyTorch versions and run on any device.
-``solve_and_round`` is the entry point of the arithmetic-mean and product
-fusions: for CUDA tensors it launches the CLIPPER solve kernel
-(``align.clipper_solve``), for CPU tensors it runs the plain ``solve_2d``.
+The functions here are the plain PyTorch versions and run on any device,
+except the 4D entry points ``solve`` and ``solve_and_round`` (the latter
+is the entry point of the arithmetic-mean and product fusions): for CUDA
+tensors they launch the CLIPPER solve kernel (``align.clipper_solve``),
+for CPU tensors they run its plain twin.
 """
 
 from __future__ import annotations
@@ -66,6 +67,27 @@ def prepare_matrix(M4: torch.Tensor) -> torch.Tensor:
     solve and the refinement."""
     N = M4.shape[-4] * M4.shape[-3]
     return M4.reshape(M4.shape[:-4] + (N, N)).to(torch.bfloat16).contiguous()
+
+
+def solve(M4: torch.Tensor, valid: torch.Tensor,
+          params: ClipperSolveParams = ClipperSolveParams()):
+    """Solve the densest-clique relaxation of a 4D affinity
+    (roman_tpu/align/clipper.py:98-114).
+
+    M4 (..., n, m, n, m) with conflicts and padding already zeroed; valid
+    (..., n, m) bool. For CUDA tensors the CLIPPER solve kernel runs, for
+    CPU tensors its plain twin. Returns u (..., n, m) nonnegative with
+    unit norm, the final penalty d (...) and F = u'(M - d Cb)u (...).
+    """
+    from roman_tpu_torch.align import clipper_solve
+
+    n, m = M4.shape[-4], M4.shape[-3]
+    batch = M4.shape[:-4]
+    N = n * m
+    u, d, F, _ = clipper_solve.clipper_solve(
+        prepare_matrix(M4).reshape((-1, N, N)),
+        valid.reshape((-1, N)).to(torch.float32).contiguous(), n, m, params)
+    return u.reshape(batch + (n, m)), d.reshape(batch), F.reshape(batch)
 
 
 def solve_2d(M: torch.Tensor, n: int, m: int, valid: torch.Tensor,
@@ -172,6 +194,15 @@ def refine_selection_2d(M: torch.Tensor, sel: torch.Tensor, iters: int = 6,
         v = v * keep * (1.0 - drop.float())
     out = (v > 0.5).reshape(sel.shape)
     return out, torch.sum(out, dim=(-2, -1)).to(torch.int32)
+
+
+def refine_selection(M4: torch.Tensor, sel: torch.Tensor, iters: int = 6,
+                     min_support: float = 0.22, rel_support: float = 0.5,
+                     edge_eps: float = 1e-4, target=None):
+    """4D-affinity entry point of refine_selection_2d
+    (roman_tpu/align/clipper.py:293-299)."""
+    return refine_selection_2d(prepare_matrix(M4), sel, iters, min_support,
+                               rel_support, edge_eps, target)
 
 
 def solve_and_round(M4: torch.Tensor, valid: torch.Tensor, max_clique: int,

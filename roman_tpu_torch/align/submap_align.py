@@ -54,20 +54,22 @@ class PairGridRegistrar:
     """Registers arbitrary batches of submap pairs, chunk by chunk.
 
     Each chunk of pair indices gathers its features on the device and goes
-    through ``registration.register_clipper`` (four kernel launches per
-    chunk on the card for geometric-mean fusion). Pairs whose homotopy did
-    not converge are then re-solved once, through the same path, at
-    ``registration.rescue_solver`` budget and spliced back. chunk_size
-    bounds the device memory of a chunk: its (chunk, N, N) bf16 affinity
-    is 5.12 MB per pair at capacity 40.
+    through the method's registration (roman_tpu/align/submap_align.py:
+    206-219): ``register_clipper`` for the ROMAN family (four kernel
+    launches per chunk on the card for geometric-mean fusion),
+    ``register_clipper_prune`` for clipper+prune (the same four launches,
+    with a pruned association mask), ``register_ransac`` for ransac (torch
+    code; its draws are made once per call for the whole pair list from
+    `seed`). For the CLIPPER methods, pairs whose homotopy did not converge
+    are then re-solved once, through the same path, at
+    ``registration.rescue_solver`` budget and spliced back; ransac has no
+    homotopy and no rescue. chunk_size bounds the device memory of a
+    chunk: its (chunk, N, N) bf16 affinity is 5.12 MB per pair at
+    capacity 40.
     """
 
     def __init__(self, cfg: RegistrationConfig, single_robot_lc: bool = False,
                  chunk_size: int = 64, device=None):
-        if cfg.method in ("ransac", "clipper+prune"):
-            raise NotImplementedError(
-                f"method {cfg.method!r} is not ported yet (ROADMAP.md, "
-                "Queue 1, item 9)")
         self.cfg = cfg
         self.single_robot_lc = single_robot_lc
         self.chunk_size = chunk_size
@@ -75,7 +77,7 @@ class PairGridRegistrar:
         self.rescued = 0  # pairs the last call re-solved at rescue budget
 
     def _register(self, f1: SubmapFeatures, f2: SubmapFeatures, ids1, ids2,
-                  cfg: RegistrationConfig) -> RegistrationResult:
+                  cfg: RegistrationConfig, draws=None) -> RegistrationResult:
         if self.single_robot_lc:
             # remove segments whose ids appear in both submaps
             # (submap_align.py:108-115)
@@ -87,10 +89,22 @@ class PairGridRegistrar:
                 dim=-1)
             f1 = dataclasses.replace(f1, valid=f1.valid & ~shared1)
             f2 = dataclasses.replace(f2, valid=f2.valid & ~shared2)
+        if cfg.method == "ransac":
+            return reg.register_ransac(f1, f2, cfg, draws)
+        if cfg.method == "clipper+prune":
+            F1, F2 = f1.ratio_feats.shape[-1], f2.ratio_feats.shape[-1]
+            return reg.register_clipper_prune(
+                f1, f2, cfg,
+                pca_attrs1=f1.ratio_feats[..., :3] if F1 >= 3 else None,
+                volume1=f1.ratio_feats[..., 3] if F1 >= 4 else None,
+                pca_attrs2=f2.ratio_feats[..., :3] if F2 >= 3 else None,
+                volume2=f2.ratio_feats[..., 3] if F2 >= 4 else None,
+                descriptors1=f1.descriptors if f1.descriptors.shape[-1] else None,
+                descriptors2=f2.descriptors if f2.descriptors.shape[-1] else None)
         return reg.register_clipper(f1, f2, cfg)
 
     def _run(self, feats1, feats2, ids1_all, ids2_all, pair_i, pair_j,
-             cfg: RegistrationConfig, times=None) -> RegistrationResult:
+             cfg: RegistrationConfig, times=None, draws=None) -> RegistrationResult:
         parts = []
         C = self.chunk_size
         for s in range(0, len(pair_i), C):
@@ -99,23 +113,31 @@ class PairGridRegistrar:
             jj = torch.as_tensor(pair_j[s:s + C], device=self.device)
             parts.append(self._register(
                 feats1.map(lambda x: x[ii]), feats2.map(lambda x: x[jj]),
-                ids1_all[ii], ids2_all[jj], cfg))
+                ids1_all[ii], ids2_all[jj], cfg,
+                None if draws is None else draws[s:s + C]))
             if times is not None:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 times[s:s + C] = (time.perf_counter() - t0) / len(ii)
-        return RegistrationResult(**{
-            f.name: torch.cat([getattr(r, f.name) for r in parts])
-            for f in dataclasses.fields(RegistrationResult)})
+
+        def cat(name):
+            fields = [getattr(r, name) for r in parts]
+            return None if fields[0] is None else torch.cat(fields)
+
+        return RegistrationResult(**{f.name: cat(f.name)
+                                     for f in dataclasses.fields(RegistrationResult)})
 
     def __call__(self, feats1: SubmapFeatures, feats2: SubmapFeatures,
-                 ids1_all, ids2_all, pair_i, pair_j, timed: bool = False):
+                 ids1_all, ids2_all, pair_i, pair_j, seed: int = 0,
+                 timed: bool = False):
         """feats*: SubmapFeatures over all submaps of each robot;
         ids*_all: (S, capacity) segment ids; pair_i/pair_j: (P,) submap
-        indices to register. Returns a RegistrationResult of numpy arrays
-        of length P (u dropped), and with timed=True also the (P,) per-pair
-        wall times (chunk time / chunk size)."""
+        indices to register; seed: the ransac draws' seed. Returns a
+        RegistrationResult of numpy arrays of length P (u dropped;
+        converged None for ransac), and with timed=True also the (P,)
+        per-pair wall times (chunk time / chunk size)."""
         P = len(pair_i)
+        self.rescued = 0
         if P == 0:
             return (None, np.zeros(0)) if timed else None
         pair_i = np.asarray(pair_i)
@@ -125,20 +147,27 @@ class PairGridRegistrar:
         ids1_all = torch.as_tensor(np.asarray(ids1_all), device=self.device)
         ids2_all = torch.as_tensor(np.asarray(ids2_all), device=self.device)
         times = np.zeros(P) if timed else None
+        draws = (reg.ransac_draws(seed, P, self.cfg.ransac_iter)
+                 if self.cfg.method == "ransac" else None)
         res = self._run(feats1, feats2, ids1_all, ids2_all, pair_i, pair_j,
-                        self.cfg, times)
-        bad = np.flatnonzero(~res.converged.cpu().numpy())
-        self.rescued = int(bad.size)
-        if bad.size:
-            rcfg = dataclasses.replace(self.cfg,
-                                       solver=reg.rescue_solver(self.cfg.solver))
-            res2 = self._run(feats1, feats2, ids1_all, ids2_all, pair_i[bad],
-                             pair_j[bad], rcfg)
-            res = reg.splice_rescued(res, res2, bad)
+                        self.cfg, times, draws)
+        if res.converged is not None:
+            bad = np.flatnonzero(~res.converged.cpu().numpy())
+            self.rescued = int(bad.size)
+            if bad.size:
+                rcfg = dataclasses.replace(self.cfg,
+                                           solver=reg.rescue_solver(self.cfg.solver))
+                res2 = self._run(feats1, feats2, ids1_all, ids2_all, pair_i[bad],
+                                 pair_j[bad], rcfg)
+                res = reg.splice_rescued(res, res2, bad)
+
+        def host(x):
+            return None if x is None else x.cpu().numpy()
+
         out = RegistrationResult(
-            sel=res.sel.cpu().numpy(), count=res.count.cpu().numpy(),
-            T_align=res.T_align.cpu().numpy(), ok=res.ok.cpu().numpy(), u=None,
-            score=res.score.cpu().numpy(), converged=res.converged.cpu().numpy())
+            sel=host(res.sel), count=host(res.count), T_align=host(res.T_align),
+            ok=host(res.ok), u=None, score=host(res.score),
+            converged=host(res.converged))
         return (out, times) if timed else out
 
 
@@ -146,10 +175,11 @@ def submap_align(sm_params: SubmapAlignParams, sm_io: SubmapAlignInputOutput,
                  chunk_size: int = 64,
                  precomputed_submaps: Optional[List[List[Submap]]] = None,
                  roman_maps: Optional[List[RomanMap]] = None,
-                 device=None) -> SubmapAlignResults:
+                 device=None, seed: int = 0) -> SubmapAlignResults:
     """Full alignment stage; equivalent of reference submap_align
     (submap_align.py:28-220), writing the same artifact set. Registers on
-    `device` (default cuda; device="cpu" runs the plain PyTorch path)."""
+    `device` (default cuda; device="cpu" runs the plain PyTorch path);
+    seed is the ransac draws' seed."""
     device = resolve_device(device)
     # --- load ground truth pose data (submap_align.py:41-58) ---
     gt_pose_data = [None, None]
@@ -180,7 +210,7 @@ def submap_align(sm_params: SubmapAlignParams, sm_io: SubmapAlignInputOutput,
     cfg = sm_params.get_registration_config()
     results = align_submap_lists(
         submaps, cfg, sm_params, sm_io, gt_pose_data, chunk_size=chunk_size,
-        device=device,
+        device=device, seed=seed,
     )
     results.total_time = time.time() - total_t0
 
@@ -191,7 +221,7 @@ def submap_align(sm_params: SubmapAlignParams, sm_io: SubmapAlignInputOutput,
 def align_submap_lists(submaps, cfg: RegistrationConfig,
                        sm_params: SubmapAlignParams, sm_io: SubmapAlignInputOutput,
                        gt_pose_data=(None, None), chunk_size: int = 64,
-                       device=None) -> SubmapAlignResults:
+                       device=None, seed: int = 0) -> SubmapAlignResults:
     """Core grid alignment on prebuilt submap lists."""
     device = resolve_device(device)
     n0, n1 = len(submaps[0]), len(submaps[1])
@@ -283,13 +313,13 @@ def align_submap_lists(submaps, cfg: RegistrationConfig,
     if sm_params.per_pair_timing:
         res, times = registrar(
             feats[0], feats[1], auxs[0]["seg_ids"], auxs[1]["seg_ids"],
-            pair_i, pair_j, timed=True,
+            pair_i, pair_j, seed=seed, timed=True,
         )
         timing_list = list(times)
     else:
         res = registrar(
             feats[0], feats[1], auxs[0]["seg_ids"], auxs[1]["seg_ids"],
-            pair_i, pair_j,
+            pair_i, pair_j, seed=seed,
         )
         # one batched dispatch: attribute wall time uniformly
         reg_time = time.time() - t0

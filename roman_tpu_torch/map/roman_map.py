@@ -12,11 +12,14 @@ SubmapFeatures on a device, so the (i, j) pair grid registers in batches.
 ``load_roman_map`` reads map pickles written by either package. Those of
 roman_tpu name roman_tpu.map.roman_map.{RomanMap, SegmentData}; the
 unpickler maps them to this module's classes without importing roman_tpu.
+Map pickles of the reference mit-acl/roman are converted by
+``roman_tpu_torch.interop``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import pickle
 from typing import List, Optional
@@ -96,6 +99,44 @@ class RomanMap:
         with open(os.path.expanduser(path), "wb") as f:
             pickle.dump(self, f)
 
+    @classmethod
+    def from_pickle(cls, path: str) -> "RomanMap":
+        """A map pickle of either package (through _MapUnpickler)."""
+        with open(os.path.expanduser(path), "rb") as f:
+            m = _MapUnpickler(f).load()
+        if not isinstance(m, cls):
+            raise TypeError(f"{path} holds a {type(m).__name__}, not a RomanMap")
+        return m
+
+    @classmethod
+    def concatenate(cls, maps: List["RomanMap"]) -> "RomanMap":
+        """Chunked-mapping merge (map.py:61-92): shifts segment ids of later
+        chunks past the running max."""
+        maps = [m for m in maps if len(m.times) > 0] or maps[:1]
+        out = maps[0]
+        for other in maps[1:]:
+            if out.poses_are_flu != other.poses_are_flu:
+                raise ValueError("cannot concatenate maps whose poses_are_flu differ")
+            max_id = max((s.id for s in out.segments), default=0)
+            shifted = [dataclasses.replace(s, id=s.id + max_id) for s in other.segments]
+            desc = None
+            if out.descriptors is not None and other.descriptors is not None:
+                desc = np.concatenate([out.descriptors, other.descriptors])
+            out = cls(
+                segments=out.segments + shifted,
+                trajectory=np.concatenate([out.trajectory, other.trajectory]),
+                times=np.concatenate([out.times, other.times]),
+                descriptors=desc,
+                poses_are_flu=out.poses_are_flu,
+            )
+        return out
+
+    def get_segment_by_id(self, seg_id: int) -> Optional[SegmentData]:
+        for s in self.segments:
+            if s.id == seg_id:
+                return s
+        return None
+
 
 class _MapUnpickler(pickle.Unpickler):
     """Reads map pickles of either package: roman_tpu's map classes map to
@@ -113,14 +154,19 @@ class _MapUnpickler(pickle.Unpickler):
 
 
 def load_roman_map(path: str) -> RomanMap:
-    """Load a map pickle written by roman_tpu or by this package. (Maps
-    of the reference mit-acl/roman are converted by roman_tpu.interop,
-    which is not ported yet.)"""
-    with open(os.path.expanduser(path), "rb") as f:
-        m = _MapUnpickler(f).load()
-    if not isinstance(m, RomanMap):
-        raise TypeError(f"{path} holds a {type(m).__name__}, not a RomanMap")
-    return m
+    """Load a map pickle written by roman_tpu or by this package, or a
+    ROMANMap of the reference mit-acl/roman (converted by
+    roman_tpu_torch.interop, no reference install needed).
+
+    The fallback catches what roman_tpu's loader catches
+    (roman_tpu/map/roman_map.py:133-141), with TypeError standing for its
+    failed isinstance assertion."""
+    try:
+        return RomanMap.from_pickle(path)
+    except (TypeError, ModuleNotFoundError, AttributeError):
+        from roman_tpu_torch.interop import load_reference_map
+
+        return load_reference_map(os.path.expanduser(path))
 
 
 @dataclasses.dataclass
@@ -408,3 +454,56 @@ def submaps_to_features(
         descriptors=[sm.descriptor for sm in submaps],
     )
     return feats, aux
+
+
+# ---------------------------------------------------------------------------
+# segment-slam JSON interop (map.py:361-422)
+# ---------------------------------------------------------------------------
+
+def load_segment_slam_segments(json_file: str, robot_name=None, as_dict=False):
+    with open(json_file) as f:
+        data = json.load(f)
+    segments = {}
+    for seg in data["segments"]:
+        if robot_name is not None and seg["robot_name"] != robot_name:
+            continue
+        c = seg["centroid_odom"]
+        center = np.array([c["x"], c["y"], c["z"]]) if isinstance(c, dict) else np.asarray(c)
+        segments[seg["segment_index"]] = SegmentData(
+            id=seg["segment_index"],
+            center=center,
+            volume=seg["shape_attributes"]["volume"],
+            linearity=seg["shape_attributes"]["linearity"],
+            planarity=seg["shape_attributes"]["planarity"],
+            scattering=seg["shape_attributes"]["scattering"],
+            extent=None,
+            semantic_descriptor=None,
+            first_seen=seg["first_seen"]["seconds"] + seg["first_seen"]["nanoseconds"] * 1e-9,
+            last_seen=seg["last_seen"]["seconds"] + seg["last_seen"]["nanoseconds"] * 1e-9,
+        )
+    return segments if as_dict else list(segments.values())
+
+
+def load_segment_slam_submaps(json_file: str, robot_name=None) -> List[Submap]:
+    with open(json_file) as f:
+        data = json.load(f)
+    segments = load_segment_slam_segments(json_file, robot_name, as_dict=True)
+    submaps = []
+    for sj in data["submaps"]:
+        if robot_name is not None and sj["robot_name"] != robot_name:
+            continue
+        tf = sj["T_odom_submap"]
+        T = se3_np.xyz_quat_to_T(
+            np.array([tf["tx"], tf["ty"], tf["tz"]]),
+            np.array([tf["qx"], tf["qy"], tf["qz"], tf["qw"]]),
+        )
+        submaps.append(
+            Submap(
+                id=sj["submap_index"],
+                time=sj["seconds"] + sj["nanoseconds"] * 1e-9,
+                segments=[segments[k] for k in sj["segment_indices"] if k in segments],
+                pose_flu=T,
+                segment_frame="odom",
+            )
+        )
+    return submaps

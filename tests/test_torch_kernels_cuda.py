@@ -24,6 +24,7 @@ Tolerances:
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -445,3 +446,126 @@ def test_arithmetic_mean_registration_reaches_round_refine(dev, monkeypatch):
     ref = registration.register_clipper(f1, f2, cfg)
     assert torch.equal(out.sel, ref.sel) and torch.equal(out.count, ref.count)
     torch.testing.assert_close(out.u, ref.u, rtol=0, atol=2e-3)
+
+
+def test_clipper_prune_registration_matches_plain(dev, monkeypatch):
+    """clipper+prune runs the fused path with no ratio and no cosine term
+    and a pruned association mask: all four kernels launch, and it selects
+    as the plain twins do."""
+    f1, f2 = _features(dev, P=8, seed=12)
+    cfg = RegistrationConfig(method="clipper+prune", cos_min=0.5,
+                             epsilon_shape=0.5)
+    kw = dict(pca_attrs1=f1.ratio_feats[..., :3], volume1=f1.ratio_feats[..., 3],
+              pca_attrs2=f2.ratio_feats[..., :3], volume2=f2.ratio_feats[..., 3],
+              descriptors1=f1.descriptors, descriptors2=f2.descriptors)
+    before = [k.launches for k in fr.KERNELS]
+    out = registration.register_clipper_prune(f1, f2, cfg, **kw)
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in zip(fr.KERNELS, before))
+    monkeypatch.setattr(registration, "fused_register", fr.fused_register_plain)
+    ref = registration.register_clipper_prune(f1, f2, cfg, **kw)
+    assert torch.equal(out.sel, ref.sel) and torch.equal(out.count, ref.count)
+    assert torch.equal(out.ok, ref.ok) and out.ok.any()
+    torch.testing.assert_close(out.T_align, ref.T_align, rtol=0, atol=1e-4)
+    # the mask pruned candidates that the plain valid mask keeps
+    valid = f1.valid[:, :, None] & f2.valid[:, None, :]
+    cos = torch.einsum("pnd,pmd->pnm", f1.descriptors, f2.descriptors)
+    assert (valid & (cos < cfg.cos_min)).any()
+
+
+def test_mno_clipper_on_the_card_matches_the_cpu(dev):
+    """mno_clipper launches the solve and round_refine kernels for each
+    solution and gives the CPU path's solutions."""
+    f1, f2 = _features(dev, P=4, seed=13)
+    cfg = RegistrationConfig(method="roman", cos_min=0.5, cos_max=0.9)
+    before = (clipper_solve.launches, fr.round_refine.launches)
+    card = registration.mno_clipper(f1, f2, cfg, num_solutions=2)
+    torch.cuda.synchronize()
+    assert clipper_solve.launches >= before[0] + 2
+    assert fr.round_refine.launches >= before[1] + 2
+    cpu = registration.mno_clipper(f1.map(lambda x: x.cpu()),
+                                   f2.map(lambda x: x.cpu()), cfg, num_solutions=2)
+    for (sel_g, cnt_g, _), (sel_c, cnt_c, _) in zip(card, cpu):
+        assert torch.equal(sel_g.cpu(), sel_c) and torch.equal(cnt_g.cpu(), cnt_c)
+    assert (card[0][1] >= 4).all()
+
+
+def test_ransac_grid_is_deterministic_and_agrees_with_the_cpu(dev):
+    """One seed gives the same draws on both devices; two card runs give
+    the same selections, and the loop-closure decisions are the CPU's."""
+    from roman_tpu_torch.align.submap_align import PairGridRegistrar
+
+    f1, f2 = _features(dev, P=6, seed=14)
+    cfg = RegistrationConfig(method="ransac")
+    ids = np.zeros((6, CAP), np.int64)
+    pi = pj = np.arange(6)
+    runs = [PairGridRegistrar(cfg, chunk_size=4, device=d)(f1, f2, ids, ids, pi, pj,
+                                                           seed=5)
+            for d in ("cuda", "cuda", "cpu")]
+    for name in ("sel", "count", "T_align"):
+        assert np.array_equal(getattr(runs[0], name), getattr(runs[1], name))
+    lc = [r.ok & (r.count >= 4) for r in runs]
+    assert np.array_equal(lc[0], lc[2])
+    assert runs[0].converged is None
+
+
+def _pose_graph(rng, n=40, n_lc=10, n_outliers=4):
+    """Two drifted circular odometry chains with cross-robot loop closures,
+    some of them outliers (the graphs of tests/test_rpgo.py, in numpy)."""
+    from roman_tpu_torch.ops import se3_np
+    from roman_tpu_torch.rpgo import g2o_io
+
+    I_odom = g2o_io.info_upper_from_matrix(g2o_io.information_matrix(0.1, np.deg2rad(0.5)))
+    I_lc = g2o_io.info_upper_from_matrix(g2o_io.information_matrix(1.0, np.deg2rad(2.0)))
+
+    def xq(T):
+        t, q = se3_np.T_to_xyz_quat(T)
+        return np.concatenate([t, q])
+
+    gt, vertices, edges = {}, {}, []
+    for r, letter in enumerate("ab"):
+        poses = np.stack([world.yaw_T(2 * np.pi * k / n + np.pi / 2, np.array(
+            [5.0 * r + 20 * np.cos(2 * np.pi * k / n),
+             2.0 * r + 20 * np.sin(2 * np.pi * k / n), 0.5 * r])) for k in range(n)])
+        gt[letter] = poses
+        odom = [poses[0]]
+        for k in range(1, n):
+            noise = world.yaw_T(rng.normal() * 0.01, rng.normal(size=3) * 0.05)
+            odom.append(odom[-1] @ np.linalg.inv(poses[k - 1]) @ poses[k] @ noise)
+        for k in range(n):
+            vertices[g2o_io.symbol(letter, k)] = xq(odom[k])
+        for k in range(n - 1):
+            edges.append(g2o_io.G2OEdge(g2o_io.symbol(letter, k), g2o_io.symbol(letter, k + 1),
+                                        xq(np.linalg.inv(odom[k]) @ odom[k + 1]), I_odom))
+    for k in rng.choice(n, size=n_lc, replace=False):
+        T = np.linalg.inv(gt["a"][k]) @ gt["b"][k]
+        edges.append(g2o_io.G2OEdge(g2o_io.symbol("a", int(k)), g2o_io.symbol("b", int(k)),
+                                    xq(T), I_lc, lc_count=8))
+    for _ in range(n_outliers):
+        i, j = rng.integers(0, n, 2)
+        T = world.yaw_T(rng.uniform(-np.pi, np.pi), rng.uniform(-30, 30, 3))
+        edges.append(g2o_io.G2OEdge(g2o_io.symbol("a", int(i)), g2o_io.symbol("b", int(j)),
+                                    xq(T), I_lc, lc_count=8))
+    return g2o_io.G2OGraph(vertices=vertices, edges=edges)
+
+
+def test_rpgo_solve_is_bitwise_repeatable_on_the_card(dev, tmp_path):
+    """Two card solves write the same result.g2o (the segment sums add in
+    a fixed order); the CPU solve rejects the same loop closures and
+    places every vertex within 1e-2 m."""
+    from roman_tpu_torch.rpgo import g2o_io, solver
+
+    graph = _pose_graph(np.random.default_rng(3))
+    g2o_io.write_g2o(graph, str(tmp_path / "in.g2o"))
+    outs = []
+    for k, d in enumerate(("cuda", "cuda", "cpu")):
+        os.makedirs(tmp_path / str(k))
+        outs.append(solver.rpgo_solve_g2o(str(tmp_path / "in.g2o"),
+                                          str(tmp_path / str(k)), device=d))
+    raw = [open(p, "rb").read() for p in outs]
+    assert raw[0] == raw[1]
+    pos = [np.stack([v[:3] for _, v in sorted(g2o_io.parse_g2o(p).vertices.items())])
+           for p in outs]
+    assert np.abs(pos[0] - pos[2]).max() <= 1e-2
+    diag = [solver.solve_pose_graph(graph, device=d)[1] for d in ("cuda", "cpu")]
+    assert diag[0] == diag[1] and diag[0]["n_lc_pcm_rejected"] >= 3

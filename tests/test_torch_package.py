@@ -32,6 +32,8 @@ from roman_tpu_torch.align.submap_align import PairGridRegistrar, submap_align
 from roman_tpu_torch.kernels import build
 from roman_tpu_torch.params.submap_align_params import (SubmapAlignInputOutput,
                                                         SubmapAlignParams)
+from roman_tpu_torch.rpgo import solver
+from roman_tpu_torch.rpgo.g2o_io import G2OGraph
 
 torch.set_num_threads(1)
 
@@ -101,10 +103,17 @@ def test_entry_points_without_device_raise_on_a_host_without_a_card(no_card, tmp
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.features_from_numpy(np.zeros((2, 3)), np.zeros((2, 4)),
                                     np.zeros((2, 8)), np.ones(2, bool))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PairGridRegistrar(RegistrationConfig(method="ransac"))
     io = SubmapAlignInputOutput(inputs=["a.pkl", "b.pkl"],
                                 output_dir=str(tmp_path), run_name="align")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         submap_align(SubmapAlignParams(), io)
+    graph = G2OGraph(vertices={0: np.array([0, 0, 0, 0, 0, 0, 1.0])}, edges=[])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solver.solve_pose_graph(graph)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solver.rpgo_solve_g2o(str(tmp_path / "in.g2o"), str(tmp_path))
     assert not any(tmp_path.iterdir())
     assert device.resolve_device("cpu") == torch.device("cpu")
 
@@ -186,6 +195,37 @@ def test_solve_and_round_rounds_through_the_kernel_off_the_cpu(
         clipper.solve_and_round(_meta(P, n, m, n, m), _meta(P, n, m, dtype=torch.bool),
                                 max_clique=64)
     assert [c[1] for c in failing_launch] == ["round_refine_launch"]
+
+
+@pytest.mark.parametrize("entry", ["clipper_prune", "mno_clipper", "clipper_solve"])
+def test_registration_methods_launch_kernels_off_the_cpu(failing_launch, entry):
+    """clipper+prune, mno_clipper and the 4D solve reach the kernels for a
+    tensor that is not on the CPU; the plain twins never run."""
+    from roman_tpu_torch.align import clipper, registration
+    from roman_tpu_torch.align.invariants import SubmapFeatures
+
+    P, n, m = 2, 4, 3
+
+    def feats():
+        return SubmapFeatures(centers=_meta(P, n, 3), ratio_feats=_meta(P, n, 4),
+                              descriptors=_meta(P, n, 8),
+                              valid=_meta(P, n, dtype=torch.bool))
+
+    cfg = RegistrationConfig(method="clipper+prune")
+    if entry == "clipper_prune":
+        f1, f2 = feats(), feats()
+        call, first = (lambda: registration.register_clipper_prune(
+            f1, f2, cfg, descriptors1=f1.descriptors, descriptors2=f2.descriptors)), \
+            "assoc_terms"
+    elif entry == "mno_clipper":
+        call, first = (lambda: registration.mno_clipper(
+            feats(), feats(), RegistrationConfig())), "clipper_solve"
+    else:
+        call, first = (lambda: clipper.solve(
+            _meta(P, n, m, n, m), _meta(P, n, m, dtype=torch.bool))), "clipper_solve"
+    with pytest.raises(RuntimeError, match=f"{first}: CUDA launch failed"):
+        call()
+    assert [c[1] for c in failing_launch] == [f"{first}_launch"]
 
 
 def test_wrappers_check_their_inputs(failing_launch):
