@@ -53,8 +53,22 @@ N = 1600 candidate associations each), and then:
    idle share of one profiled solve, two solves bitwise equal, the CPU's
    solve within 1e-2 m with the same rejections), the ATE beside that of
    odometry alone, and the dense graph's solve;
-9. prints one JSON line of per-kernel numbers, the card's name and power
-   limit again, and last {"ok": true, "device": {...}}.
+9. runs the device BatchMapper on bench.py's mapping traffic (64 frames
+   of 24 observations of 128 points, batches of 16, seed 0): frames/s at
+   descriptor widths 64 and 768, peak device memory, the idle share and
+   device events of one profiled batch, host agreement against the port's
+   host Mapper by bench.py's rule (>= 0.8), and the card's BatchMapper
+   against the CPU's (same seg_id, status and sightings per slot, centers
+   within 1e-3 m);
+10. runs params/demo_sim_device's chain: both robots mapped by
+   MapRunner.run_observations on the device backend, submap_align on the
+   three robot pairs, the back half (one sparse solve on the card) and the
+   ATE, with the gates of tests/test_e2e_demo_device.py (>= 8 loop
+   closures, ATE < 1.0 m); then the host backend on robot0's first 300
+   frames against the device backend on the same frames;
+11. prints one JSON line of per-kernel numbers, the card's name and power
+   limit again, and last {"ok": true, "device": {...}}. No kernel of the
+   port lies on the mapping path (phases 9-10 launch none).
 
 Every check raises on failure, so the script then exits non-zero and
 prints no result line. Without a CUDA card it exits with code 1 at once.
@@ -830,12 +844,30 @@ def positions(path):
     return np.stack([g.vertices[k][:3] for k in sorted(g.vertices)])
 
 
-def run_back_half(runs, workdir, device):
+def odometry_only_ate(final, time_file, gt):
+    """The ATE of the fused graph's odometry alone (its loop closures
+    dropped, nothing solved)."""
+    from roman_tpu_torch.rpgo.evaluate import evaluate
+    from roman_tpu_torch.rpgo.g2o_io import G2OEdge, is_loop_closure
+
+    odom_only = os.path.join(os.path.dirname(final), "odometry_only.g2o")
+    with open(final) as f, open(odom_only, "w") as out:
+        for line in f:  # vertices and odometry edges: the graph without LCs
+            tok = line.split()
+            if not tok or tok[0].startswith("#") or (
+                    tok[0] == "EDGE_SE3:QUAT" and is_loop_closure(G2OEdge(
+                        int(tok[1]), int(tok[2]), np.zeros(7), np.zeros(21)))):
+                continue
+            out.write(line)
+    return evaluate(odom_only, time_file, gt, output_dir=None)
+
+
+def run_back_half(runs, workdir, device, full=True):
     """demo/demo.py:183-302 from map/ and align/robot0_robot1/align.g2o:
     odometry g2o files (sparse at 2.0 m keyframes and dense), fusion,
     combined loop closures, edited loop-closure information, the robust
-    solve on the card, and the ATE against the GT csv files; then the same
-    solve on the CPU, a second card solve, and the dense graph."""
+    solve on the card, and the ATE against the GT csv files; then (full)
+    the same solve on the CPU, a second card solve, and the dense graph."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -845,8 +877,7 @@ def run_back_half(runs, workdir, device):
     from roman_tpu_torch.rpgo.evaluate import evaluate
     from roman_tpu_torch.rpgo.extract_odom import roman_map_pkl_to_g2o
     from roman_tpu_torch.rpgo.fusion import create_config, g2o_file_fusion
-    from roman_tpu_torch.rpgo.g2o_io import (G2OEdge, edit_g2o_edge_information,
-                                             is_loop_closure)
+    from roman_tpu_torch.rpgo.g2o_io import edit_g2o_edge_information
     from roman_tpu_torch.rpgo.solver import RPGOSolverParams
     from roman_tpu_torch.sim import world
 
@@ -906,6 +937,14 @@ def run_back_half(runs, workdir, device):
                               pcm_gate=p.pcm_gate)
     cpu = torch.device("cpu")
     res1, diag1, wall1 = solve_file(final, os.path.join(rpgo, "card1"), params, device)
+    if not full:
+        ate = evaluate(res1, time_file, gt, output_dir=None)
+        ate_odom = odometry_only_ate(final, time_file, gt)
+        print(f"rpgo (sparse): {diag1}; card solve {wall1:.3f} s wall; ATE {ate:.4f} m "
+              f"(odometry alone {ate_odom:.4f} m)", flush=True)
+        require(np.isfinite([ate, ate_odom]).all() and np.isfinite(positions(res1)).all(),
+                "a back-half number is not finite")
+        return dict(ate=ate, ate_odometry=ate_odom, wall_s=wall1, n_lc=n_lc)
     res2, diag2, wall2 = solve_file(final, os.path.join(rpgo, "card2"), params, device)
     with open(res1, "rb") as f1, open(res2, "rb") as f2:
         bitwise = f1.read() == f2.read()
@@ -924,16 +963,7 @@ def run_back_half(runs, workdir, device):
                                              params, cpu)
     ate = evaluate(res1, time_file, gt, output_dir=None)
     ate_cpu = evaluate(res_cpu, time_file, gt, output_dir=None)
-    odom_only = os.path.join(rpgo, "odometry_only.g2o")
-    with open(final) as f, open(odom_only, "w") as out:
-        for line in f:  # vertices and odometry edges: the graph without LCs
-            tok = line.split()
-            if not tok or tok[0].startswith("#") or (
-                    tok[0] == "EDGE_SE3:QUAT" and is_loop_closure(G2OEdge(
-                        int(tok[1]), int(tok[2]), np.zeros(7), np.zeros(21)))):
-                continue
-            out.write(line)
-    ate_odom = evaluate(odom_only, time_file, gt, output_dir=None)
+    ate_odom = odometry_only_ate(final, time_file, gt)
     dpos = float(np.abs(positions(res1) - positions(res_cpu)).max())
     print(f"rpgo (sparse): {diag1}; card solve {wall1:.3f} s and {wall2:.3f} s wall, "
           f"two card solves bitwise equal {bitwise}; profiled solve {prof_wall:.3f} s "
@@ -962,6 +992,270 @@ def run_back_half(runs, workdir, device):
     require(np.isfinite(ate_d) and np.isfinite(positions(res_d)).all(),
             "the dense solve is not finite")
     return dict(ate=ate, ate_odometry=ate_odom, wall_s=wall1, idle=1 - busy / (prof_wall * 1e3))
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the device mapper on bench.py's mapping traffic
+# ---------------------------------------------------------------------------
+
+MAP_FRAMES, MAP_BATCH, MAP_OBS, MAP_POINTS = 64, 16, 24, 128
+MAP_WIDTHS = (64, 768)      # bench.py's width, and DINOv2-base's (semantics: dino)
+
+
+def mapping_params():
+    """run_mapping_bench's MapperParams (bench.py:483-484)."""
+    from roman_tpu_torch.params.mapper_params import MapperParams
+
+    return MapperParams(min_sightings=2, max_t_no_sightings=2.0,
+                        geometric_score_range=(0.1, 1.0))
+
+
+def feed_stream(mapper, stream, batch=MAP_BATCH):
+    times, poses, pts, val, desc, mask = stream
+    for s in range(0, len(times), batch):
+        e = s + batch
+        mapper.update_batch(times[s:e], poses[s:e], pts[s:e], val[s:e], desc[s:e],
+                            mask[s:e])
+
+
+def center_agreement(segs_a, segs_b) -> float:
+    """bench.py's referee (:536-543): the share of each map's segments with
+    a counterpart within 1 m in the other, averaged over both maps."""
+    if not segs_a or not segs_b:
+        return 0.0
+    ca = np.stack([np.asarray(s.center) for s in segs_a])
+    cb = np.stack([np.asarray(s.center) for s in segs_b])
+    d = np.linalg.norm(ca[:, None] - cb[None, :], axis=-1)
+    return float(0.5 * ((d.min(axis=1) < 1.0).mean() + (d.min(axis=0) < 1.0).mean()))
+
+
+def device_busy(fn):
+    """Run fn once under torch.profiler: (device busy ms from the raw
+    device events, number of device events, wall seconds, device ms by
+    kernel name)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_device = [e for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+    by_name = {}
+    for e in on_device:
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    return sum(by_name.values()), len(on_device), wall, by_name
+
+
+def live_centers(state):
+    """Per live pool slot, the mean of its valid points."""
+    pts = state.points.cpu().numpy()
+    val = state.points_valid.cpu().numpy()
+    live = np.flatnonzero(state.status.cpu().numpy() > 0)
+    return live, np.stack([pts[i][val[i]].mean(axis=0) if val[i].any()
+                           else np.zeros(3) for i in live])
+
+
+def run_mapping_bench(device, repeats=3):
+    """bench.py's run_mapping_bench (bench.py:435-543) on the port's
+    BatchMapper: frames/s (best of `repeats` feeds of the 64-frame stream,
+    the state reset to the post-warmup snapshot before each) at descriptor
+    widths 64 and 768, peak device memory, the idle share and device events
+    of one profiled batch; host agreement by bench.py's rule against the
+    port's host Mapper; and the card's BatchMapper against the CPU's."""
+    import torch
+
+    from roman_tpu_torch.data.camera import CameraParams
+    from roman_tpu_torch.map.batch_mapper import BatchMapper
+    from roman_tpu_torch.map.mapper import Mapper
+    from roman_tpu_torch.sim.observations import (mapping_bench_stream,
+                                                  stream_observations)
+
+    params, cam = mapping_params(), CameraParams.simple()
+    out = {}
+    reset_launches()
+    for D in MAP_WIDTHS:
+        stream = mapping_bench_stream(MAP_FRAMES, MAP_OBS, MAP_POINTS, D, seed=SEED)
+        mapper = BatchMapper(params, cam, desc_dim=D, obs_capacity=MAP_OBS, device=device)
+        t0 = time.perf_counter()
+        feed_stream(mapper, stream)          # warmup; populates the map
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        state0 = mapper.state
+        torch.cuda.reset_peak_memory_stats()
+        best = np.inf
+        for _ in range(repeats):
+            mapper.state = state0
+            t0 = time.perf_counter()
+            feed_stream(mapper, stream)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        mapper.state = state0
+        busy, n_events, wall, by_name = device_busy(
+            lambda: mapper.update_batch(*[x[:MAP_BATCH] for x in stream]))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        out[D] = dict(fps=MAP_FRAMES / best, peak_mib=peak, idle=1 - busy / (wall * 1e3),
+                      events_per_frame=n_events / MAP_BATCH, busy_ms=busy, wall_ms=wall * 1e3)
+        print(f"mapping bench, width {D}: {MAP_FRAMES / best:.1f} frames/s (best of "
+              f"{repeats}, {best * 1e3:.1f} ms for {MAP_FRAMES} frames; first pass "
+              f"{warm:.2f} s), peak device memory {peak:.1f} MiB; one profiled batch of "
+              f"{MAP_BATCH} frames: wall {wall * 1e3:.1f} ms, device busy {busy:.2f} ms "
+              f"in {n_events} device events ({n_events / MAP_BATCH:.0f} a frame), idle "
+              f"share {1 - busy / (wall * 1e3):.3f}; most device time: "
+              + "; ".join(f"{name[:60]} {ms:.2f} ms" for name, ms in top), flush=True)
+    counts = read_launches()
+
+    stream = mapping_bench_stream(MAP_FRAMES, MAP_OBS, MAP_POINTS, MAP_WIDTHS[0], seed=SEED)
+    card = BatchMapper(params, cam, desc_dim=MAP_WIDTHS[0], obs_capacity=MAP_OBS,
+                       device=device)
+    feed_stream(card, stream)
+    card_map = card.get_roman_map()
+    host = Mapper(params, cam)
+    t0 = time.perf_counter()
+    for f, obs in enumerate(stream_observations(*stream)):
+        host.update(float(stream[0][f]), stream[1][f], obs)
+    host_s = time.perf_counter() - t0
+    host_map = host.get_roman_map()
+    agreement = center_agreement(host_map.segments, card_map.segments)
+    cpu = BatchMapper(params, cam, desc_dim=MAP_WIDTHS[0], obs_capacity=MAP_OBS,
+                      device="cpu")
+    t0 = time.perf_counter()
+    feed_stream(cpu, stream)
+    cpu_s = time.perf_counter() - t0
+    same = {name: bool(torch.equal(getattr(card.state, name).cpu(), getattr(cpu.state, name)))
+            for name in ("seg_id", "status", "num_sightings")}
+    live_card, c_card = live_centers(card.state)
+    live_cpu, c_cpu = live_centers(cpu.state)
+    dc = float(np.abs(c_card - c_cpu).max()) if np.array_equal(live_card, live_cpu) else np.inf
+    print(f"mapping bench: launches {counts} (no kernel of the port lies on the "
+          f"mapping path); host agreement {agreement:.3f} (host Mapper {len(host_map.segments)} "
+          f"segments in {host_s:.1f} s, card {len(card_map.segments)}); card against the "
+          f"CPU's BatchMapper ({cpu_s:.1f} s): seg_id, status, num_sightings equal "
+          f"{same}, {len(live_card)} live slots, max center difference {dc:.3e} m",
+          flush=True)
+    require(agreement >= 0.8, f"host agreement {agreement:.3f} under 0.8")
+    require(all(same.values()), f"the card's and the CPU's pools differ: {same}")
+    require(dc <= 1e-3, f"card and CPU segment centers {dc:.3e} m apart (tol 1e-3)")
+    require(all(np.isfinite([v["fps"], v["idle"]]).all() for v in out.values()),
+            "a mapping bench number is not finite")
+    return out, agreement
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the demo's sim chain (params/demo_sim_device) on the card
+# ---------------------------------------------------------------------------
+
+DEMO_PARAMS = os.path.join("params", "demo_sim_device")
+HOST_WINDOW_FRAMES = 300    # robot0's first 50 s for the host backend
+
+
+def map_robot(data, mapper_params, name, device, t_window=None):
+    """MapRunner.run_observations over one robot's sim stream: (map,
+    robot run, frames, mapper seconds, total seconds)."""
+    import torch
+
+    from roman_tpu_torch.data.camera import CameraParams
+    from roman_tpu_torch.map.run import MapRunner
+    from roman_tpu_torch.params.fastsam_params import FastSAMParams
+    from roman_tpu_torch.sim.observations import sim_observation_source
+
+    src, pd, _, robot = sim_observation_source(data["img_data_params"], data["runs"], name)
+    tf = None if t_window is None else pd.t0 + t_window
+    runner = MapRunner(mapper_params, FastSAMParams(), CameraParams.simple(), pd, tf=tf,
+                       dt=float(data["dt"]), device=device)
+    t0 = time.perf_counter()
+    m = runner.run_observations(src)
+    if runner.device is not None and runner.device.type == "cuda":
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    return m, robot, len(runner.frame_times()), float(np.sum(runner.times.map_times)), total
+
+
+def run_demo_sim(device, workdir):
+    """params/demo_sim_device end to end: both robots mapped on the device
+    backend (map/<robot>.pkl), submap_align on the demo's three robot
+    pairs, the back half (one sparse solve on the card) and the ATE; the
+    gates of tests/test_e2e_demo_device.py. Then the host backend on
+    robot0's first HOST_WINDOW_FRAMES frames, against the device backend on
+    the same window."""
+    import dataclasses
+
+    import yaml
+
+    from roman_tpu_torch.align.submap_align import submap_align
+    from roman_tpu_torch.params.mapper_params import MapperParams
+    from roman_tpu_torch.params.submap_align_params import (SubmapAlignInputOutput,
+                                                            SubmapAlignParams)
+    from roman_tpu_torch.sim import world
+
+    pdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), DEMO_PARAMS)
+    with open(os.path.join(pdir, "data.yaml")) as f:
+        data = yaml.safe_load(f)
+    mp = MapperParams.from_yaml(os.path.join(pdir, "mapper.yaml"))
+    sap = SubmapAlignParams.from_yaml(os.path.join(pdir, "submap_align.yaml"))
+    runs = data["runs"]
+    require(mp.mapper_backend == "device", "demo_sim_device does not pick the device mapper")
+    os.makedirs(os.path.join(workdir, "map"))
+    robots, gts, info = [], [], {}
+    reset_launches()
+    for k, name in enumerate(runs):
+        m, robot, n, map_s, total = map_robot(data, mp, name, device)
+        m.save(os.path.join(workdir, "map", f"{name}.pkl"))
+        csv = os.path.join(workdir, f"gt{k}.csv")
+        world.write_gt_csv(robot, csv)
+        gy = os.path.join(workdir, f"gt{k}.yaml")
+        with open(gy, "w") as f:
+            f.write(f"type: csv\npath: {csv}\n")
+        robots.append(robot)
+        gts.append(gy)
+        info[name] = dict(frames=n, map_s=map_s, total_s=total, segments=len(m.segments))
+        print(f"demo_sim_device map {name}: {n} frames, {len(m.segments)} segments; "
+              f"mapper {map_s:.2f} s ({n / map_s:.1f} frames/s), with the observation "
+              f"stream {total:.2f} s", flush=True)
+        require(len(m.segments) > 0 and np.isfinite(
+            np.stack([s.center for s in m.segments])).all(), f"{name}'s map is empty or "
+            "not finite")
+    map_counts = read_launches()
+
+    t0 = time.perf_counter()
+    for i in range(len(runs)):
+        for j in range(i, len(runs)):
+            pair = f"{runs[i]}_{runs[j]}"
+            io = SubmapAlignInputOutput(
+                inputs=[os.path.join(workdir, "map", f"{r}.pkl") for r in (runs[i], runs[j])],
+                output_dir=os.path.join(workdir, "align", pair), run_name="align",
+                input_gt_pose_yaml=[gts[i], gts[j]], robot_names=[runs[i], runs[j]])
+            submap_align(dataclasses.replace(sap, single_robot_lc=(i == j)), io,
+                         device=device)
+    align_s = time.perf_counter() - t0
+    with open(os.path.join(workdir, "align", "_".join(runs), "align.g2o")) as f:
+        n_lc = sum(ln.startswith("EDGE_SE3:QUAT") for ln in f)
+    print(f"demo_sim_device align: {len(runs) * (len(runs) + 1) // 2} robot pairs in "
+          f"{align_s:.2f} s; {n_lc} loop closures between the robots; mapping "
+          f"launches {map_counts}", flush=True)
+    back = run_back_half(robots, workdir, device, full=False)
+    print(f"demo_sim_device: {n_lc} loop closures (gate >= 8), ATE {back['ate']:.4f} m "
+          f"(gate < 1.0; odometry alone {back['ate_odometry']:.4f} m)", flush=True)
+    require(n_lc >= 8, f"only {n_lc} loop closures between the robots (gate 8)")
+    require(back["ate"] < 1.0, f"ATE {back['ate']:.4f} m (gate 1.0 m)")
+
+    t_window = HOST_WINDOW_FRAMES * float(data["dt"])
+    host_params = dataclasses.replace(mp, mapper_backend="host")
+    hm, _, n, host_map_s, _ = map_robot(data, host_params, runs[0], device, t_window)
+    dm, _, _, dev_map_s, _ = map_robot(data, mp, runs[0], device, t_window)
+    agreement = center_agreement(hm.segments, dm.segments)
+    print(f"demo_sim_device {runs[0]}, first {n} frames: host backend {host_map_s:.2f} s "
+          f"({n / host_map_s:.1f} frames/s, {len(hm.segments)} segments), device backend "
+          f"{dev_map_s:.2f} s ({n / dev_map_s:.1f} frames/s, {len(dm.segments)} segments), "
+          f"agreement {agreement:.3f}", flush=True)
+    require(agreement >= 0.8, f"host/device agreement {agreement:.3f} under 0.8")
+    return dict(info=info, n_lc=n_lc, ate=back["ate"], ate_odometry=back["ate_odometry"],
+                host_fps=n / host_map_s, agreement=agreement)
 
 
 # ---------------------------------------------------------------------------
@@ -1005,6 +1299,9 @@ def main() -> int:
         run_prune_grid(feats, auxs, runs, cfg)
         run_ransac_grid(feats, auxs, runs, cfg)
         run_back_half(runs, workdir, dev)
+    run_mapping_bench(dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        run_demo_sim(dev, workdir)
 
     sources = {"clipper_solve": "roman_tpu_torch/csrc/clipper_solve.cu"}
     replaces = {"clipper_solve": "roman_tpu/align/clipper_pallas.py:50"}

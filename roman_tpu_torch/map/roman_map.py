@@ -96,8 +96,10 @@ class RomanMap:
             raise ValueError("trajectory and times differ in length")
 
     def save(self, path: str):
+        """Pickle the map as roman_tpu names it, so that either package
+        reads it (_MapPickler)."""
         with open(os.path.expanduser(path), "wb") as f:
-            pickle.dump(self, f)
+            _MapPickler(f, protocol=pickle.DEFAULT_PROTOCOL).dump(self)
 
     @classmethod
     def from_pickle(cls, path: str) -> "RomanMap":
@@ -136,6 +138,27 @@ class RomanMap:
             if s.id == seg_id:
                 return s
         return None
+
+
+class _MapPickler(pickle._Pickler):
+    """Writes RomanMap and SegmentData under roman_tpu's class paths
+    (roman_tpu.map.roman_map), the same fields in the same layout.
+    roman_tpu's loader then reads the port's map pickles (under this
+    module's own path it read them as empty maps), and _MapUnpickler maps
+    the names back here. The class references are written without
+    importing roman_tpu."""
+
+    def save_global(self, obj, name=None):
+        if obj not in (RomanMap, SegmentData):
+            return super().save_global(obj, name)
+        if self.proto >= 4:
+            self.save("roman_tpu.map.roman_map")
+            self.save(obj.__name__)
+            self.write(pickle.STACK_GLOBAL)
+        else:
+            self.write(pickle.GLOBAL + b"roman_tpu.map.roman_map\n"
+                       + obj.__name__.encode() + b"\n")
+        self.memoize(obj)
 
 
 class _MapUnpickler(pickle.Unpickler):

@@ -1,9 +1,9 @@
 """Package rules of the PyTorch port, on the CPU.
 
-- roman_tpu_torch imports neither jax nor anything of roman_tpu: checked by
-  importing every module in a fresh interpreter where both are blocked,
-  and by a scan of every import statement of the package and of
-  chip_smoke.py;
+- roman_tpu_torch imports neither jax nor anything of roman_tpu, nor
+  scikit-learn: checked by importing every module in a fresh interpreter
+  where they are blocked, and by a scan of every import statement of the
+  package and of chip_smoke.py;
 - entry points run on cuda unless asked for the CPU, and raise on a host
   without a card;
 - a kernel wrapper runs its plain twin only for CPU tensors: for any other
@@ -39,7 +39,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "roman_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "roman_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "roman_tpu", "sklearn")
 
 
 def _blocked(module: str) -> bool:
@@ -116,6 +116,33 @@ def test_entry_points_without_device_raise_on_a_host_without_a_card(no_card, tmp
         solver.rpgo_solve_g2o(str(tmp_path / "in.g2o"), str(tmp_path))
     assert not any(tmp_path.iterdir())
     assert device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mapping_entry_points_without_device_raise_on_a_host_without_a_card(no_card):
+    """The device mapper, the device backend of MapRunner and the range
+    sensor's renderer run on cuda unless asked for the CPU; the host
+    backend needs no device."""
+    from roman_tpu_torch.data.camera import CameraParams
+    from roman_tpu_torch.data.pose_data import PoseData
+    from roman_tpu_torch.map.align_pointcloud import AlignPointCloud
+    from roman_tpu_torch.map.batch_mapper import BatchMapper, init_state
+    from roman_tpu_torch.map.run import MapRunner
+    from roman_tpu_torch.params.fastsam_params import FastSAMParams
+    from roman_tpu_torch.params.mapper_params import MapperParams
+
+    small = dict(max_segments=4, max_points_per_segment=8)
+    cam = CameraParams.simple()
+    pd = PoseData.from_times_and_poses([0.0, 1.0], np.stack([np.eye(4)] * 2))
+    device_params = MapperParams(mapper_backend="device", **small)
+    for make in (lambda: BatchMapper(MapperParams(**small), cam),
+                 lambda: init_state(4, 8, 2),
+                 lambda: MapRunner(device_params, FastSAMParams(), cam, pd),
+                 lambda: AlignPointCloud(cam, np.eye(4))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert BatchMapper(MapperParams(**small), cam, device="cpu").state.points.device.type == "cpu"
+    assert MapRunner(device_params, FastSAMParams(), cam, pd, device="cpu").device.type == "cpu"
+    assert MapRunner(MapperParams(**small), FastSAMParams(), cam, pd).mapper is not None
 
 
 def test_tf32_is_off():
