@@ -66,9 +66,23 @@ N = 1600 candidate associations each), and then:
    ATE, with the gates of tests/test_e2e_demo_device.py (>= 8 loop
    closures, ATE < 1.0 m); then the host backend on robot0's first 300
    frames against the device backend on the same frames;
-11. prints one JSON line of per-kernel numbers, the card's name and power
+11. runs the perception front end on bench.py's perception traffic (8
+   frames of 480x640, FastSAM-x at 256x256 and DINOv2-base, 64 masks of
+   256 points, seeded random weights): frames/s eager and through
+   run_batch's CUDA graph (best of 3 after a warmup; the graph equal to
+   the eager program bit for bit), peak device memory, the idle share and
+   device events of one profiled batch, each stage's ms and device ms,
+   the nets' FLOPs a frame and the share of the bf16 peak; the card
+   against the CPU with f32 nets on one frame and bf16 against f32 on the
+   card (perception/agreement.py, with the limits below); and CLIP
+   ViT-L/14 crop semantics on 2 frames;
+12. maps 64 RGB-D frames of 480x640 through MapRunner.run with no front
+   end passed (the port's PerceptionFrontend, params/demo/fastsam.yaml)
+   and the device mapper, writes map/robot0.pkl and reads it back;
+13. prints one JSON line of per-kernel numbers, the card's name and power
    limit again, and last {"ok": true, "device": {...}}. No kernel of the
-   port lies on the mapping path (phases 9-10 launch none).
+   port lies on the mapping or perception paths (phases 9-12 launch
+   none).
 
 Every check raises on failure, so the script then exits non-zero and
 prints no result line. Without a CUDA card it exits with code 1 at once.
@@ -1259,6 +1273,344 @@ def run_demo_sim(device, workdir):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the perception front end on bench.py's perception traffic
+# ---------------------------------------------------------------------------
+
+PERC_FRAMES, PERC_H, PERC_W = 8, 480, 640
+PERC_ARCHS = dict(seg_arch="fastsam-x", vit_arch="dinov2-base")
+CLIP_FRAMES = 2
+CLIP_CFG = None             # None: CLIP ViT-L/14, the reference's
+# card against CPU (f32 nets) and bf16 against f32 on the card: the limits
+NET_REL_TOL = 1e-3          # head outputs, prototypes: max |d| / max |x|
+VIT_REL_TOL = 1e-4          # patch tokens
+KNIFE_EDGE = 1e-4           # |mask logit| below this may fall either way
+POINT_TOL = 1e-3            # m, valid points of proposals with equal masks
+COS_CPU = 0.9999            # embeddings and frame descriptors, card vs CPU
+MATCHED_CPU = 0.9           # share of proposals (by anchor) found in both runs
+MATCHED_BF16, IOU_BF16, COS_BF16, FD_COS_BF16 = 0.5, 0.8, 0.99, 0.99
+
+
+def perception_params(**kw):
+    """run_perception_bench's FastSAMParams (bench.py:545-568)."""
+    from roman_tpu_torch.params.fastsam_params import FastSAMParams
+
+    base = dict(imgsz=(256, 256), batch_frames=PERC_FRAMES, max_masks_per_frame=64,
+                max_points_per_mask=256, **PERC_ARCHS)
+    base.update(kw)
+    return FastSAMParams(**base)
+
+
+def perception_frames(seed=SEED):
+    """run_perception_bench's frames: images uniform in [0, 1), depths
+    uniform in [1, 6) m."""
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(size=(PERC_FRAMES, PERC_H, PERC_W, 3)).astype(np.float32)
+    depths = rng.uniform(1.0, 6.0, size=(PERC_FRAMES, PERC_H, PERC_W)).astype(np.float32)
+    return images, depths
+
+
+def net_flops(fe, frames):
+    """FLOPs of one frame through the segmentation net and the ViT,
+    counted from the shapes of their products and convolutions."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from roman_tpu_torch.ops.image import resize_bilinear
+    from roman_tpu_torch.perception import dinov2
+    from roman_tpu_torch.perception.wrapper import _r32
+
+    img, _ = fe.inputs(*[x[:1] for x in frames])
+    p, c = fe.params, fe.vit_cfg.patch
+    seg_in = resize_bilinear(img, (_r32(p.imgsz[0]), _r32(p.imgsz[1])))
+    vit_in = dinov2.normalize(resize_bilinear(img, (PERC_H // c * c, PERC_W // c * c)),
+                              dinov2.IMAGENET_MEAN, dinov2.IMAGENET_STD)
+    out = {}
+    for name, fn in (("seg", lambda: fe.seg_model(seg_in)),
+                     ("vit", lambda: fe.vit_model(vit_in))):
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            fn()
+        out[name] = float(counter.get_total_flops())
+    return out
+
+
+def stage_times(fe, frames):
+    """The batch program's stages, each run alone on the batch's own
+    intermediate tensors: ms a call by CUDA events (3 calls after a
+    warmup), and device ms and events of one call from the profiler."""
+    import torch
+
+    from roman_tpu_torch.ops.image import resize_bilinear, resize_nearest
+    from roman_tpu_torch.perception import dinov2, fastsam
+    from roman_tpu_torch.perception.vit import attention_core
+    from roman_tpu_torch.perception.wrapper import _r32, erode_masks
+
+    p = fe.params
+    img, dep = fe.inputs(*frames)
+    hw = (_r32(p.imgsz[0]), _r32(p.imgsz[1]))
+    K = p.max_masks_per_frame
+    with torch.no_grad():
+        seg_in = resize_bilinear(img, hw)
+        out = fe.seg_model(seg_in)
+        idx, boxes, _, coeffs, keep = fastsam.select_proposals(out, fe.seg_cfg, hw, p.conf,
+                                                               p.iou, K)
+        masks, _, _ = fe.segment(img)
+        c = fe.vit_cfg
+        gh, gw = PERC_H // c.patch * c.patch, PERC_W // c.patch * c.patch
+        vit_in = dinov2.normalize(resize_bilinear(img, (gh, gw)), dinov2.IMAGENET_MEAN,
+                                  dinov2.IMAGENET_STD)
+        n_tok = (gh // c.patch) * (gw // c.patch) + 1
+        q, k, v = (torch.randn((img.shape[0], c.heads, n_tok, c.width // c.heads),
+                               device=img.device).to(c.dtype) for _ in range(3))
+        stages = {
+            "FastSAM convolutions (the net)": lambda: fe.seg_model(seg_in),
+            "decode + NMS loop": lambda: fastsam.select_proposals(out, fe.seg_cfg, hw, p.conf,
+                                                                  p.iou, K),
+            "mask assembly + resize": lambda: resize_nearest(fastsam.assemble_masks(
+                out["proto"], coeffs, boxes, hw).float(), (PERC_H, PERC_W)),
+            "ViT (products + attention)": lambda: fe.vit_model(vit_in),
+            f"attention alone ({c.depth} layers)":
+                lambda: [attention_core(q, k, v) for _ in range(c.depth)],
+            "mask filters": lambda: fe.mask_filters(masks, keep),
+            "erosion (strided)": lambda: erode_masks(masks, 2 * p.erosion_size + 1,
+                                                     stride=p.pcd_stride),
+            "lifting (erosion, top_k, voxel downsample)": lambda: fe.lift(masks, dep),
+        }
+        res = {}
+        for name, fn in stages.items():
+            busy, n_ev, _, _ = device_busy(fn)
+            res[name] = (cuda_ms(fn, 3), busy, n_ev)
+    return res
+
+
+def compare_runs(fe_a, fe_b, frames, label):
+    """Frame 0 through two front ends with the same weights
+    (perception.agreement): printed, and returned."""
+    from roman_tpu_torch.perception.agreement import front_end_agreement
+
+    res = front_end_agreement(fe_a, fe_b, *[x[:1] for x in frames], knife_edge=KNIFE_EDGE)
+    print(f"perception, {label}: nets max rel |d| {res['net_rel']:.3e} (heads, prototypes), "
+          f"{res['vit_rel']:.3e} (patch tokens); proposals matched by anchor "
+          f"{res['matched']:.3f}, valid equal {res['valid_equal']:.3f}, mask IoU (camera "
+          f"frame, every {fe_a.params.mask_downsample_factor}th pixel) {res['iou']:.4f}; "
+          f"masks in the net's frame: {res['diff_pixels']} pixels differ, "
+          f"{res['diff_off_edge']} of them off the knife edge (|logit| < {KNIFE_EDGE:g}: "
+          f"{res['edge_pixels']} of {res['pixels']} pixels); {res['same']} proposals with "
+          f"equal masks: valid equal {res['valid_equal_same']}, points valid equal "
+          f"{res['points_valid_equal']}, max point |d| {res['point_err']:.3e} m, min "
+          f"embedding cosine {res['emb_cos_min_same']:.6f}; mean embedding cosine "
+          f"{res['emb_cos_mean']:.6f}; frame descriptor cosine {res['fd_cos']:.6f}", flush=True)
+    return res
+
+
+def run_perception_bench(device, repeats=3):
+    """bench.py's run_perception_bench (bench.py:545-568) on the port's
+    front end: frames/s (best of `repeats` after a warmup), peak device
+    memory, the idle share and device events of one profiled batch, the
+    stages' device ms, the nets' FLOPs per frame and the share of the bf16
+    peak; then the card against the CPU with f32 nets on one frame, bf16
+    against f32 on the card, and CLIP crop semantics on 2 frames."""
+    import dataclasses
+
+    import torch
+
+    from roman_tpu_torch.data.camera import CameraParams
+    from roman_tpu_torch.perception import clip as clip_mod
+    from roman_tpu_torch.perception.wrapper import SEG_ARCHS, VIT_ARCHS, PerceptionFrontend
+
+    cam = CameraParams.simple(width=PERC_W, height=PERC_H)
+    params = perception_params()
+    frames = perception_frames()
+    reset_launches()
+    t0 = time.perf_counter()
+    fe = PerceptionFrontend(params, cam, device=device)
+    build_s = time.perf_counter() - t0
+    K = params.max_masks_per_frame
+
+    def batch(graph):
+        out = fe.program(*fe.inputs(*frames), graph=graph)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    res = {}
+    for graph in (False, True):   # the eager program, then run_batch's graph replay
+        t0 = time.perf_counter()
+        out = batch(graph)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        best = np.inf
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            out = batch(graph)
+            best = min(best, time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        busy, n_events, wall, by_name = device_busy(lambda: batch(graph))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        res[graph] = dict(fps=PERC_FRAMES / best, peak=peak, idle=1 - busy / (wall * 1e3),
+                          events=n_events, busy=busy, out=out)
+        print(f"perception bench, {'graph replay (run_batch)' if graph else 'eager'} "
+              f"({params.seg_arch}, {params.vit_arch}, {PERC_FRAMES} frames of "
+              f"{PERC_H}x{PERC_W}, imgsz {params.imgsz}, {K} masks, "
+              f"{params.max_points_per_mask} points): {PERC_FRAMES / best:.2f} frames/s (best "
+              f"of {repeats}, {best * 1e3:.1f} ms a batch; first batch {first:.2f} s; nets "
+              f"built in {build_s:.1f} s), peak device memory {peak:.1f} MiB; one profiled "
+              f"batch: wall {wall * 1e3:.1f} ms, device busy {busy:.2f} ms in {n_events} "
+              f"device events, idle share {1 - busy / (wall * 1e3):.3f}; valid masks "
+              f"{int(out['valid'].sum())} of {out['valid'].size}; most device time: "
+              + "; ".join(f"{n[:60]} {ms:.2f} ms" for n, ms in top), flush=True)
+    same = {k: bool(np.array_equal(res[True]["out"][k], res[False]["out"][k]))
+            for k in res[True]["out"]}
+    counts = read_launches()
+    print(f"perception bench: graph replay equals the eager program {same}; launches "
+          f"{counts} (no kernel of the port lies on this path)", flush=True)
+    require(all(same.values()), "the graph replay differs from the eager program")
+    fps, peak, busy = res[True]["fps"], res[True]["peak"], res[True]["busy"]
+    out = fe.run_batch(*frames)
+    require(np.isfinite(out.points).all() and np.isfinite(out.embeddings).all()
+            and np.isfinite(out.frame_descriptors).all(), "a front-end output is not finite")
+    require(out.embeddings.shape == (PERC_FRAMES, K, fe.embedding_dim),
+            f"embeddings of shape {out.embeddings.shape}")
+    require(out.valid.any(), "no valid mask in the perception batch")
+    stages = stage_times(fe, frames)
+    print("perception stages, a batch (ms by CUDA events; device ms and events from the "
+          "profiler): " + "; ".join(f"{n} {ms:.2f} ms ({busy:.2f} ms, {ev})"
+                                    for n, (ms, busy, ev) in stages.items()), flush=True)
+    flops = net_flops(fe, frames)
+    per_frame = flops["seg"] + flops["vit"]
+    share = per_frame * fps / BF16_FLOPS
+    print(f"perception FLOPs a frame (counted from shapes): segmentation "
+          f"{flops['seg'] / 1e9:.1f} G, ViT {flops['vit'] / 1e9:.1f} G, total "
+          f"{per_frame / 1e9:.1f} G; at {fps:.2f} frames/s that is "
+          f"{per_frame * fps / 1e12:.1f} TFLOP/s, {share:.4f} of the bf16 dense peak "
+          f"({BF16_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
+    del fe
+
+    f32 = dict(seg_cfg=dataclasses.replace(SEG_ARCHS[params.seg_arch], dtype=torch.float32),
+               vit_cfg=dataclasses.replace(VIT_ARCHS[params.vit_arch], dtype=torch.float32))
+    card32 = PerceptionFrontend(params, cam, device=device, **f32)
+    cpu32 = PerceptionFrontend(params, cam, device="cpu", **f32)
+    cpu = compare_runs(card32, cpu32, frames, "card against the CPU, f32 nets, frame 0")
+    del cpu32
+    require(cpu["net_rel"] <= NET_REL_TOL and cpu["vit_rel"] <= VIT_REL_TOL,
+            "the card's nets disagree with the CPU's")
+    require(cpu["matched"] >= MATCHED_CPU, "the card's proposals disagree with the CPU's")
+    require(cpu["diff_off_edge"] == 0 and cpu["same"] >= cpu["matched"] * K / 2
+            and cpu["valid_equal_same"] and cpu["points_valid_equal"]
+            and cpu["point_err"] <= POINT_TOL and cpu["emb_cos_min_same"] >= COS_CPU
+            and cpu["fd_cos"] >= COS_CPU, "the card's masks, points or embeddings "
+            "disagree with the CPU's")
+    card16 = PerceptionFrontend(params, cam, device=device)
+    b16 = compare_runs(card16, card32, frames, "bf16 against f32 nets on the card, frame 0")
+    del card16, card32
+    require(b16["matched"] >= MATCHED_BF16 and b16["iou"] >= IOU_BF16
+            and b16["emb_cos_mean"] >= COS_BF16 and b16["fd_cos"] >= FD_COS_BF16,
+            "the bf16 front end strays from the f32 one")
+
+    cp = perception_params(semantics="clip", batch_frames=CLIP_FRAMES)
+    fe = PerceptionFrontend(cp, cam, device=device,
+                            clip_cfg=CLIP_CFG or clip_mod.CLIP_VIT_L14)
+    two = [x[:CLIP_FRAMES] for x in frames]
+    fe.run_batch(*two)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fe.run_batch(*two)
+    clip_s = time.perf_counter() - t0
+    finite = bool(np.isfinite(out.embeddings).all())
+    print(f"perception, semantics clip ({fe.clip_cfg.width}-wide, {fe.clip_cfg.depth} layers, "
+          f"{CLIP_FRAMES * K} crops of {fe.clip_cfg.img_size}): {CLIP_FRAMES / clip_s:.2f} "
+          f"frames/s, embeddings {out.embeddings.shape}, finite {finite}", flush=True)
+    require(finite and out.embeddings.shape[-1] == fe.embedding_dim,
+            "the CLIP embeddings are not finite")
+    return dict(fps=fps, fps_eager=res[False]["fps"], peak_mib=peak, idle=res[True]["idle"],
+                events=res[True]["events"], flops=per_frame, cpu=cpu, bf16=b16,
+                clip_fps=CLIP_FRAMES / clip_s)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: RGB-D frames to a map on the card, through MapRunner.run
+# ---------------------------------------------------------------------------
+
+RGBD_FRAMES, RGBD_DT = 64, 0.25
+DEMO_FASTSAM = os.path.join("params", "demo", "fastsam.yaml")
+
+
+def rgbd_stream(seed=SEED):
+    """tests/test_npz_mapping.py::_make_archive's frames at the camera's
+    full size: seeded uint8 images, depth 3 m with a near box at 1.5 m,
+    and a TUM-style slow forward trajectory (x = 0.2 t)."""
+    n, H, W = RGBD_FRAMES, PERC_H, PERC_W
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(0, 255, size=(n, H, W, 3)).astype(np.uint8)
+    depths = np.full((n, H, W), 3.0, np.float32)
+    depths[:, 30 * H // 96:60 * H // 96, 40 * W // 128:70 * W // 128] = 1.5
+    times = np.arange(n) * RGBD_DT
+    poses = np.stack([np.eye(4)] * n)
+    poses[:, 0, 3] = 0.2 * times
+    return images, depths, times, poses
+
+
+def run_rgbd_mapping(device, workdir):
+    """MapRunner.run with the device mapper and no front end passed: the
+    port's PerceptionFrontend (params/demo/fastsam.yaml) maps the RGB-D
+    stream; the map is written to map/robot0.pkl and read back."""
+    import dataclasses
+
+    import torch
+
+    from roman_tpu_torch.data.camera import CameraParams
+    from roman_tpu_torch.data.pose_data import PoseData
+    from roman_tpu_torch.map.roman_map import load_roman_map
+    from roman_tpu_torch.map.run import MapRunner
+    from roman_tpu_torch.params.fastsam_params import FastSAMParams
+    from roman_tpu_torch.params.mapper_params import MapperParams
+    from roman_tpu_torch.perception.wrapper import PerceptionFrontend
+
+    pdir = os.path.dirname(os.path.abspath(__file__))
+    fs = FastSAMParams.from_yaml(os.path.join(pdir, DEMO_FASTSAM))
+    fs = dataclasses.replace(fs, **PERC_ARCHS)
+    mp = MapperParams(min_sightings=1, max_t_no_sightings=2.0,
+                      geometric_score_range=(0.05, 1.0), mapper_backend="device")
+    images, depths, times, poses = rgbd_stream()
+    pd = PoseData.from_times_and_poses(times, poses)
+    runner = MapRunner(mp, fs, CameraParams.simple(width=PERC_W, height=PERC_H), pd,
+                       tf=times[-1] + RGBD_DT, dt=RGBD_DT, device=device)
+
+    def get_frames(ts):
+        idx = np.rint(np.asarray(ts) / RGBD_DT).astype(int)
+        return images[idx], depths[idx]
+
+    reset_launches()
+    t0 = time.perf_counter()
+    m = runner.run(get_frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    n = len(runner.frame_times())
+    path = os.path.join(workdir, "map", "robot0.pkl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    m.save(path)
+    back = load_roman_map(path)
+    dims = {np.asarray(s.semantic_descriptor).shape for s in back.segments}
+    percep, mapping = float(np.sum(runner.times.fastsam_times)), float(
+        np.sum(runner.times.map_times))
+    print(f"rgbd mapping ({fs.seg_arch}, {fs.vit_arch}, {n} frames of {PERC_H}x{PERC_W}, "
+          f"batches of {fs.batch_frames}): front end {n / percep:.2f} frames/s ({percep:.2f} "
+          f"s), mapper {n / mapping:.2f} frames/s ({mapping:.2f} s), map stage {wall:.2f} s "
+          f"wall (the front end built on first use); {len(m.segments)} segments, read back "
+          f"{len(back.segments)} from {os.path.relpath(path, workdir)}, descriptor shapes "
+          f"{sorted(dims)}; launches {counts}", flush=True)
+    require(isinstance(runner.frontend, PerceptionFrontend)
+            and runner.frontend.device.type == device.type,
+            "MapRunner.run did not build the front end on its device")
+    require(len(back.segments) > 0 and len(back.segments) == len(m.segments),
+            "the RGB-D map is empty or did not read back")
+    require(dims == {(runner.frontend.embedding_dim,)}, f"descriptor shapes {dims}")
+    require(np.isfinite(np.stack([s.center for s in back.segments])).all(),
+            "a segment center is not finite")
+    return dict(frames=n, percep_fps=n / percep, map_fps=n / mapping, wall=wall,
+                segments=len(m.segments))
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1302,6 +1654,9 @@ def main() -> int:
     run_mapping_bench(dev)
     with tempfile.TemporaryDirectory() as workdir:
         run_demo_sim(dev, workdir)
+    run_perception_bench(dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        run_rgbd_mapping(dev, workdir)
 
     sources = {"clipper_solve": "roman_tpu_torch/csrc/clipper_solve.cu"}
     replaces = {"clipper_solve": "roman_tpu/align/clipper_pallas.py:50"}

@@ -1,15 +1,18 @@
-"""Carry the alignment engine's state across from roman_tpu.
+"""Carry state across from roman_tpu.
 
-The system has no learned weights: its state is the per-submap features
-and the solver configuration. These helpers take them as plain numpy
-arrays and Python values (for example ``jax.tree.map(np.asarray, f)`` of a
-roman_tpu SubmapFeatures, or ``dataclasses.asdict`` of its
-RegistrationConfig), so this module needs nothing of JAX.
+The alignment engine's state is the per-submap features and the solver
+configuration; the perception nets' is their weights. These helpers take
+them as plain numpy arrays and Python values (for example
+``jax.tree.map(np.asarray, f)`` of a roman_tpu SubmapFeatures,
+``dataclasses.asdict`` of its RegistrationConfig, or the flax variables of
+its ViT and YoloSeg as numpy pytrees), so this module needs nothing of JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
+from typing import Dict
 
 import numpy as np
 import torch
@@ -68,3 +71,54 @@ def solver_params_from_fields(**fields):
     if kw.get("feature_overrides") is not None:
         kw["feature_overrides"] = tuple(kw["feature_overrides"])
     return RegistrationConfig(**kw)
+
+
+# ---------------------------------------------------------------------------
+# perception weights: flax variables -> the port's state dicts
+# ---------------------------------------------------------------------------
+
+def _flatten(tree, prefix=()):
+    for key, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _flatten(sub, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(sub, np.float32)
+
+
+def _flax_to_torch(variables) -> Dict[str, torch.Tensor]:
+    """flax variables ({'params': ..., 'batch_stats': ...}, numpy leaves)
+    of a module whose torch counterpart has the same module names ->
+    state dict. Layouts: Conv kernels HWIO -> OIHW; ConvTranspose kernels
+    (kh, kw, in, out) -> (in, out, kh, kw) with the spatial taps flipped
+    (flax applies them unflipped, torch as a transposed convolution);
+    Dense kernels (in, out) -> (out, in); LayerNorm/BatchNorm scale ->
+    weight; batch stats mean/var -> running_mean/running_var."""
+    out = {}
+    for path, v in _flatten(variables.get("params", {})):
+        *mods, leaf = path
+        if leaf == "kernel" and v.ndim == 4 and mods[-1] == "upsample":
+            v, leaf = v[::-1, ::-1].transpose(2, 3, 0, 1), "weight"
+        elif leaf == "kernel" and v.ndim == 4:
+            v, leaf = v.transpose(3, 2, 0, 1), "weight"
+        elif leaf == "kernel":
+            v, leaf = v.T, "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        out[".".join(mods + [leaf])] = torch.tensor(np.ascontiguousarray(v))
+    for path, v in _flatten(variables.get("batch_stats", {})):
+        *mods, leaf = path
+        name = {"mean": "running_mean", "var": "running_var"}[leaf]
+        out[".".join(mods + [name])] = torch.tensor(np.ascontiguousarray(v))
+    return out
+
+
+def vit_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """roman_tpu ViT (DINOv2 or CLIP) variables -> the port's ViT state
+    dict (``perception.vit.ViT.load_state_dict``)."""
+    return _flax_to_torch(variables)
+
+
+def yoloseg_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """roman_tpu YoloSeg variables (params and batch_stats) -> the port's
+    YoloSeg state dict."""
+    return _flax_to_torch(variables)

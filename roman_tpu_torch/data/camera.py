@@ -53,15 +53,19 @@ def xyz_to_pixel(points: torch.Tensor, K) -> torch.Tensor:
 
 def pixel_depth_to_xyz(u: torch.Tensor, v: torch.Tensor, depth: torch.Tensor,
                        K) -> torch.Tensor:
-    """Pixels and depth -> camera-frame xyz (..., 3)."""
-    x = (u - K[0, 2]) / K[0, 0] * depth
-    y = (v - K[1, 2]) / K[1, 1] * depth
+    """Pixels and depth -> camera-frame xyz (..., 3): x = (u - cx) * (1 /
+    fx) * depth, roman_tpu's (u - cx) / fx * depth as XLA evaluates it in a
+    jit, where K is a constant and the division is folded into a multiply
+    (with K a float32 tensor the two agree to the bit; plain division
+    differs in the last bit, which moves points on a voxel boundary)."""
+    x = (u - K[0, 2]) * (1.0 / K[0, 0]) * depth
+    y = (v - K[1, 2]) * (1.0 / K[1, 1]) * depth
     return torch.stack([x, y, depth], dim=-1)
 
 
 def depth_image_to_points(depth: torch.Tensor, K) -> torch.Tensor:
-    """(H, W) depth image -> (H, W, 3) camera-frame points (z forward):
-    the whole point image at once, which masks then gather from
+    """(..., H, W) depth image -> (..., H, W, 3) camera-frame points (z
+    forward): the whole point image at once, which masks then gather from
     (fastsam_wrapper.py:340-362)."""
     H, W = depth.shape[-2], depth.shape[-1]
     v, u = torch.meshgrid(

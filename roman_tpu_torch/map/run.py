@@ -5,10 +5,11 @@ Port of roman_tpu/map/run.py (reference ROMANMapRunner,
 roman/map/run.py:44-198). ``mapper_params.mapper_backend`` picks the host
 Mapper or the device BatchMapper; the device mapper runs on ``device``
 (None means ``cuda``, and a host without a card raises unless the caller
-passes ``device="cpu"``). ``run_observations`` maps a prebuilt observation
-stream with either backend. ``run`` needs a perception front end passed
-in as ``frontend``: the port's front end is not written yet (ROADMAP.md,
-Queue 1, items 15-16).
+passes ``device="cpu"``). ``run`` maps RGB-D frames through a perception
+front end: the one passed as ``frontend``, or else the port's
+``PerceptionFrontend`` built from ``fastsam_params`` on ``device``.
+``run_observations`` maps a prebuilt observation stream with either
+backend.
 """
 
 from __future__ import annotations
@@ -59,6 +60,8 @@ class MapRunner:
         # (reference run.py:94-95)
         self.T_camera_flu = T_camera_flu
         self.device_mapper = mapper_params.mapper_backend == "device"
+        # the front end that run() builds runs here (None means cuda)
+        self.perception_device = device
         if self.device_mapper:
             self.device = resolve_device(device)
             # made once the descriptor width is known
@@ -95,12 +98,13 @@ class MapRunner:
     def run(self, get_frames: Callable[[np.ndarray], tuple],
             verbose: bool = False) -> RomanMap:
         """get_frames(times) -> (images, depths) for the requested times,
-        through the injected perception front end."""
+        through the perception front end (built on first use when none was
+        passed)."""
+        from roman_tpu_torch.perception.wrapper import PerceptionFrontend
+
         if self.frontend is None:
-            raise NotImplementedError(
-                "the perception front end is not ported yet (ROADMAP.md, Queue 1, "
-                "items 15-16); pass frontend=, or map an observation stream with "
-                "run_observations")
+            self.frontend = PerceptionFrontend(self.fastsam_params, self.camera,
+                                               device=self.perception_device)
         B = self.fastsam_params.batch_frames
         all_times = self.frame_times()
         for s in range(0, len(all_times), B):

@@ -46,11 +46,16 @@ def voxel_keys(points: torch.Tensor, mask: torch.Tensor,
                voxel_size) -> torch.Tensor:
     """Hashed int32 voxel keys of the valid points; _INVALID for padding.
 
-    mix(x ^ mix(y ^ mix(z))) over the voxel coordinates floor(p / vs),
-    computed as one f32 division and a truncation to int32 as roman_tpu
-    does (roman_tpu/ops/voxel.py:35-60). A key equal to _INVALID becomes
-    0, so padding never aliases a real voxel."""
-    v = torch.floor(points / voxel_size).to(torch.int32).to(torch.int64)
+    mix(x ^ mix(y ^ mix(z))) over the voxel coordinates floor(p / vs)
+    truncated to int32, as roman_tpu computes them
+    (roman_tpu/ops/voxel.py:35-60) inside the jit of its mapper and front
+    end: there the voxel size is a constant, and XLA folds the division
+    into a multiply by f32(1 / vs), so the keys are floor(p * f32(1 / vs)).
+    The two differ for points on a voxel boundary, e.g. a depth of 1.5 m at
+    0.05 m voxels. A key equal to _INVALID becomes 0, so padding never
+    aliases a real voxel."""
+    inv = float(np.float32(1.0) / np.float32(voxel_size))   # a scalar: no kernel
+    v = torch.floor(points * inv).to(torch.int32).to(torch.int64)
     vu = v & _MASK32
     h = _mix32(vu[..., 2])
     h = _mix32(h ^ vu[..., 1])

@@ -1,8 +1,18 @@
 """Perception (segmentation + embedding) params: a host copy of
 roman_tpu/params/fastsam_params.py, with the yaml schema of reference
 roman/params/fastsam_params.py:57-95. ``device`` is kept for schema
-compatibility and ignored. The mapping stage reads ``batch_frames`` and
-``max_masks_per_frame``; the perception front end is not ported yet."""
+compatibility and ignored (the front end takes its device as an argument).
+``perception.wrapper.PerceptionFrontend`` reads the rest: ``seg_arch``,
+``vit_arch`` and ``semantics`` pick the nets, ``imgsz``/``yolo_imgsz``
+their input sizes, ``conf``/``iou``/``max_masks_per_frame`` the NMS, the
+mask filters read ``ignore_*``/``keep_*``, ``triangle_ignore_masks``,
+``min/max_mask_len_div``, ``allow_tblr_edges`` and ``rotate_img``, lifting
+reads ``erosion_size``, ``pcd_stride``, ``max_depth``,
+``max_points_per_mask``, ``voxel_size`` and ``plane_filter_params``, and
+``frame_descriptor`` picks the pooling; ``map.run.MapRunner`` reads
+``batch_frames``. ``weights_path``, ``yolo_weights_path``,
+``use_pointcloud``, ``keep_labels_option`` and ``depth_scale`` are schema
+only."""
 
 from __future__ import annotations
 

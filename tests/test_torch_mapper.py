@@ -404,10 +404,20 @@ def src_copy():
 
 
 def test_map_runner_run_needs_a_frontend():
+    """run() with no front end passed builds the port's PerceptionFrontend
+    on the runner's device and maps the frames through it."""
+    from roman_tpu_torch.perception.wrapper import PerceptionFrontend
+
     _, (_, pd, _, _) = _sim_source()
-    runner = MapRunner(MapperParams(), FastSAMParams(), CameraParams.simple(), pd)
-    with pytest.raises(NotImplementedError, match="perception front end"):
-        runner.run(lambda ts: None)
+    fs = FastSAMParams(seg_arch="tiny", vit_arch="tiny", imgsz=(32, 32), batch_frames=2,
+                       max_masks_per_frame=4, max_points_per_mask=16)
+    runner = MapRunner(MapperParams(), fs, CameraParams.simple(width=32, height=32, f=30.0),
+                       pd, tf=pd.t0 + 0.5, dt=0.25, device="cpu")
+    runner.run(lambda ts: (np.zeros((len(ts), 32, 32, 3), np.uint8),
+                           np.full((len(ts), 32, 32), 2.0, np.float32)))
+    assert isinstance(runner.frontend, PerceptionFrontend)
+    assert runner.frontend.device.type == "cpu"
+    assert len(runner.times.total_times) == 2
 
 
 def test_map_runner_run_with_an_injected_frontend():

@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port, on the CPU.
 
-- roman_tpu_torch imports neither jax nor anything of roman_tpu, nor
-  scikit-learn: checked by importing every module in a fresh interpreter
+- roman_tpu_torch imports neither jax (nor flax) nor anything of
+  roman_tpu, nor scikit-learn, OpenCV, orbax, transformers or ultralytics:
+  checked by importing every module in a fresh interpreter
   where they are blocked, and by a scan of every import statement of the
   package and of chip_smoke.py;
 - entry points run on cuda unless asked for the CPU, and raise on a host
@@ -39,7 +40,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "roman_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "roman_tpu", "sklearn")
+BLOCKED = ("jax", "jaxlib", "flax", "roman_tpu", "sklearn", "cv2", "orbax",
+           "transformers", "ultralytics")
 
 
 def _blocked(module: str) -> bool:
@@ -143,6 +145,31 @@ def test_mapping_entry_points_without_device_raise_on_a_host_without_a_card(no_c
     assert BatchMapper(MapperParams(**small), cam, device="cpu").state.points.device.type == "cpu"
     assert MapRunner(device_params, FastSAMParams(), cam, pd, device="cpu").device.type == "cpu"
     assert MapRunner(MapperParams(**small), FastSAMParams(), cam, pd).mapper is not None
+
+
+def test_perception_entry_points_without_device_raise_on_a_host_without_a_card(no_card):
+    """The front end, its one-frame wrapper and MapRunner.run (which builds
+    the front end on its device) run on cuda unless asked for the CPU."""
+    from roman_tpu_torch.data.camera import CameraParams
+    from roman_tpu_torch.data.pose_data import PoseData
+    from roman_tpu_torch.map.fastsam_wrapper import FastSAMWrapper
+    from roman_tpu_torch.map.run import MapRunner
+    from roman_tpu_torch.params.fastsam_params import FastSAMParams
+    from roman_tpu_torch.params.mapper_params import MapperParams
+    from roman_tpu_torch.perception.wrapper import PerceptionFrontend
+
+    tiny = FastSAMParams(seg_arch="tiny", vit_arch="tiny", imgsz=(32, 32))
+    cam = CameraParams.simple(width=32, height=32)
+    pd = PoseData.from_times_and_poses([0.0, 1.0], np.stack([np.eye(4)] * 2))
+    runner = MapRunner(MapperParams(max_segments=4, max_points_per_segment=8), tiny, cam, pd)
+    for make in (lambda: PerceptionFrontend(tiny, cam),
+                 lambda: PerceptionFrontend(tiny, cam, device="cuda"),
+                 lambda: FastSAMWrapper.from_params(tiny, cam),
+                 lambda: runner.run(lambda ts: None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert runner.frontend is None
+    assert PerceptionFrontend(tiny, cam, device="cpu").device.type == "cpu"
 
 
 def test_tf32_is_off():
