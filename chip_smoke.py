@@ -60,12 +60,15 @@ N = 1600 candidate associations each), and then:
    host Mapper by bench.py's rule (>= 0.8), and the card's BatchMapper
    against the CPU's (same seg_id, status and sightings per slot, centers
    within 1e-3 m);
-10. runs params/demo_sim_device's chain: both robots mapped by
-   MapRunner.run_observations on the device backend, submap_align on the
-   three robot pairs, the back half (one sparse solve on the card) and the
-   ATE, with the gates of tests/test_e2e_demo_device.py (>= 8 loop
-   closures, ATE < 1.0 m); then the host backend on robot0's first 300
-   frames against the device backend on the same frames;
+10. runs the demo CLI (python -m roman_tpu_torch.demo, in-process) on
+   params/demo_sim_device: both robots mapped on the device backend,
+   submap_align on the three robot pairs, the sparse robust solve on the
+   card and the ATE, with the stage wall times, every launch count set to
+   0 just before the call and read just after (all four kernels must
+   launch), the output tree of tests/test_e2e_demo.py and the gates of
+   tests/test_e2e_demo_device.py (>= 8 loop closures, ATE < 1.0 m); then
+   the host backend on robot0's first 300 frames against the device
+   backend on the same frames;
 11. runs the perception front end on bench.py's perception traffic (8
    frames of 480x640, FastSAM-x at 256x256 and DINOv2-base, 64 masks of
    256 points, seeded random weights): frames/s eager and through
@@ -79,9 +82,18 @@ N = 1600 candidate associations each), and then:
 12. maps 64 RGB-D frames of 480x640 through MapRunner.run with no front
    end passed (the port's PerceptionFrontend, params/demo/fastsam.yaml)
    and the device mapper, writes map/robot0.pkl and reads it back;
-13. prints one JSON line of per-kernel numbers, the card's name and power
-   limit again, and last {"ok": true, "device": {...}}. No kernel of the
-   port lies on the mapping or perception paths (phases 9-12 launch
+13. writes two robots' ROS1 bags of 64 RGB-D frames of 480x640 (the
+   recorded-data path: rgb8 and 16UC1 images, CameraInfo, Odometry, the
+   extrinsic on /tf_static, a run-env data.yaml with a TF-resolved
+   T_postmultiply) and runs the demo CLI on them a stage at a time, with
+   params/demo's nets at full width (seeded random weights), the device
+   mapper and 768-d semantics: every artifact, each map's trajectory equal
+   to the odometry times the extrinsic within 1e-6, all four kernels
+   launched in stage 2, frames/s of mapping and each stage's wall time;
+14. prints one JSON line of per-kernel numbers (launches on the main path,
+   and on phases 10 and 13's demo runs), the card's name and power limit
+   again, and last {"ok": true, "device": {...}}. No kernel of the port
+   lies on the mapping or perception paths (phases 9 and 11-12 launch
    none).
 
 Every check raises on failure, so the script then exits non-zero and
@@ -876,12 +888,12 @@ def odometry_only_ate(final, time_file, gt):
     return evaluate(odom_only, time_file, gt, output_dir=None)
 
 
-def run_back_half(runs, workdir, device, full=True):
+def run_back_half(runs, workdir, device):
     """demo/demo.py:183-302 from map/ and align/robot0_robot1/align.g2o:
     odometry g2o files (sparse at 2.0 m keyframes and dense), fusion,
     combined loop closures, edited loop-closure information, the robust
-    solve on the card, and the ATE against the GT csv files; then (full)
-    the same solve on the CPU, a second card solve, and the dense graph."""
+    solve on the card, and the ATE against the GT csv files; then the same
+    solve on the CPU, a second card solve, and the dense graph."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -951,14 +963,6 @@ def run_back_half(runs, workdir, device, full=True):
                               pcm_gate=p.pcm_gate)
     cpu = torch.device("cpu")
     res1, diag1, wall1 = solve_file(final, os.path.join(rpgo, "card1"), params, device)
-    if not full:
-        ate = evaluate(res1, time_file, gt, output_dir=None)
-        ate_odom = odometry_only_ate(final, time_file, gt)
-        print(f"rpgo (sparse): {diag1}; card solve {wall1:.3f} s wall; ATE {ate:.4f} m "
-              f"(odometry alone {ate_odom:.4f} m)", flush=True)
-        require(np.isfinite([ate, ate_odom]).all() and np.isfinite(positions(res1)).all(),
-                "a back-half number is not finite")
-        return dict(ate=ate, ate_odometry=ate_odom, wall_s=wall1, n_lc=n_lc)
     res2, diag2, wall2 = solve_file(final, os.path.join(rpgo, "card2"), params, device)
     with open(res1, "rb") as f1, open(res2, "rb") as f2:
         bitwise = f1.read() == f2.read()
@@ -1190,73 +1194,83 @@ def map_robot(data, mapper_params, name, device, t_window=None):
     return m, robot, len(runner.frame_times()), float(np.sum(runner.times.map_times)), total
 
 
+DEMO_TREE = ["map/robot0.pkl", "map/robot1.pkl", "map/robot0.time.txt",
+             "align/robot0_robot1/align.g2o", "align/robot0_robot1/align.png",
+             "offline_rpgo/result.g2o", "offline_rpgo/result.png",
+             "offline_rpgo/robot0.csv", "offline_rpgo/ate_rmse.txt", "params/data.yaml"]
+
+
+def run_demo_cli(device, params_dir, out, *flags):
+    """python -m roman_tpu_torch.demo in-process on `device`: (stage wall
+    seconds, kernel launches during the call)."""
+    from roman_tpu_torch import demo
+
+    argv = ["-p", params_dir, "-o", out, *flags] + (["--cpu"] if device.type == "cpu" else [])
+    reset_launches()
+    stages = demo.main(argv)
+    return stages, read_launches()
+
+
+def map_seconds(time_txt: str) -> dict:
+    """The per-stage totals a mapping run writes to <run>.time.txt."""
+    with open(time_txt) as f:
+        return {ln.split(":")[0]: float(ln.split("total ")[1].split(" s")[0]) for ln in f}
+
+
 def run_demo_sim(device, workdir):
-    """params/demo_sim_device end to end: both robots mapped on the device
-    backend (map/<robot>.pkl), submap_align on the demo's three robot
-    pairs, the back half (one sparse solve on the card) and the ATE; the
-    gates of tests/test_e2e_demo_device.py. Then the host backend on
-    robot0's first HOST_WINDOW_FRAMES frames, against the device backend on
-    the same window."""
+    """params/demo_sim_device through the demo CLI: both robots mapped on
+    the device backend, submap_align on the demo's three robot pairs, the
+    sparse robust solve on the card and the ATE, with every launch count
+    set to 0 just before the call and read just after (all four kernels
+    must launch), and the gates of tests/test_e2e_demo_device.py. Then the
+    host backend on robot0's first HOST_WINDOW_FRAMES frames, against the
+    device backend on the same window."""
     import dataclasses
 
     import yaml
 
-    from roman_tpu_torch.align.submap_align import submap_align
+    from roman_tpu_torch.map.roman_map import load_roman_map
     from roman_tpu_torch.params.mapper_params import MapperParams
-    from roman_tpu_torch.params.submap_align_params import (SubmapAlignInputOutput,
-                                                            SubmapAlignParams)
-    from roman_tpu_torch.sim import world
 
     pdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), DEMO_PARAMS)
     with open(os.path.join(pdir, "data.yaml")) as f:
         data = yaml.safe_load(f)
     mp = MapperParams.from_yaml(os.path.join(pdir, "mapper.yaml"))
-    sap = SubmapAlignParams.from_yaml(os.path.join(pdir, "submap_align.yaml"))
     runs = data["runs"]
     require(mp.mapper_backend == "device", "demo_sim_device does not pick the device mapper")
-    os.makedirs(os.path.join(workdir, "map"))
-    robots, gts, info = [], [], {}
-    reset_launches()
-    for k, name in enumerate(runs):
-        m, robot, n, map_s, total = map_robot(data, mp, name, device)
-        m.save(os.path.join(workdir, "map", f"{name}.pkl"))
-        csv = os.path.join(workdir, f"gt{k}.csv")
-        world.write_gt_csv(robot, csv)
-        gy = os.path.join(workdir, f"gt{k}.yaml")
-        with open(gy, "w") as f:
-            f.write(f"type: csv\npath: {csv}\n")
-        robots.append(robot)
-        gts.append(gy)
-        info[name] = dict(frames=n, map_s=map_s, total_s=total, segments=len(m.segments))
+    out = os.path.join(workdir, "demo_sim")
+    stages, counts = run_demo_cli(device, pdir, out)
+    print(f"demo CLI, {DEMO_PARAMS}: stage wall times "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+          + f"; launches {counts}", flush=True)
+    missing = [p for p in DEMO_TREE if not os.path.exists(os.path.join(out, p))]
+    require(not missing, f"the demo CLI did not write {missing}")
+    require(all(v > 0 for v in counts.values()),
+            f"a kernel was not launched on the demo CLI's path: {counts}")
+    for name in runs:
+        m = load_roman_map(os.path.join(out, "map", f"{name}.pkl"))
+        sec = map_seconds(os.path.join(out, "map", f"{name}.time.txt"))
+        n = len(m.times)
         print(f"demo_sim_device map {name}: {n} frames, {len(m.segments)} segments; "
-              f"mapper {map_s:.2f} s ({n / map_s:.1f} frames/s), with the observation "
-              f"stream {total:.2f} s", flush=True)
+              f"mapper {sec['map']:.2f} s ({n / sec['map']:.1f} frames/s), with the "
+              f"observation stream {sec['total']:.2f} s", flush=True)
         require(len(m.segments) > 0 and np.isfinite(
             np.stack([s.center for s in m.segments])).all(), f"{name}'s map is empty or "
             "not finite")
-    map_counts = read_launches()
-
-    t0 = time.perf_counter()
-    for i in range(len(runs)):
-        for j in range(i, len(runs)):
-            pair = f"{runs[i]}_{runs[j]}"
-            io = SubmapAlignInputOutput(
-                inputs=[os.path.join(workdir, "map", f"{r}.pkl") for r in (runs[i], runs[j])],
-                output_dir=os.path.join(workdir, "align", pair), run_name="align",
-                input_gt_pose_yaml=[gts[i], gts[j]], robot_names=[runs[i], runs[j]])
-            submap_align(dataclasses.replace(sap, single_robot_lc=(i == j)), io,
-                         device=device)
-    align_s = time.perf_counter() - t0
-    with open(os.path.join(workdir, "align", "_".join(runs), "align.g2o")) as f:
+    with open(os.path.join(out, "align", "_".join(runs), "align.g2o")) as f:
         n_lc = sum(ln.startswith("EDGE_SE3:QUAT") for ln in f)
-    print(f"demo_sim_device align: {len(runs) * (len(runs) + 1) // 2} robot pairs in "
-          f"{align_s:.2f} s; {n_lc} loop closures between the robots; mapping "
-          f"launches {map_counts}", flush=True)
-    back = run_back_half(robots, workdir, device, full=False)
-    print(f"demo_sim_device: {n_lc} loop closures (gate >= 8), ATE {back['ate']:.4f} m "
-          f"(gate < 1.0; odometry alone {back['ate_odometry']:.4f} m)", flush=True)
+    with open(os.path.join(out, "offline_rpgo", "ate_rmse.txt")) as f:
+        ate = float(f.read())
+    rpgo = os.path.join(out, "offline_rpgo")
+    gt = {k: os.path.join(out, "gt", f"{name}.yaml") for k, name in enumerate(runs)}
+    ate_odom = odometry_only_ate(os.path.join(rpgo, "odom_and_lc.g2o"),
+                                 os.path.join(rpgo, "sparse", "odom_all.time.txt"), gt)
+    print(f"demo_sim_device: {n_lc} loop closures (gate >= 8), ATE {ate:.4f} m "
+          f"(gate < 1.0; odometry alone {ate_odom:.4f} m)", flush=True)
     require(n_lc >= 8, f"only {n_lc} loop closures between the robots (gate 8)")
-    require(back["ate"] < 1.0, f"ATE {back['ate']:.4f} m (gate 1.0 m)")
+    require(np.isfinite([ate, ate_odom]).all() and np.isfinite(
+        positions(os.path.join(rpgo, "result.g2o"))).all(), "a back-half number is not finite")
+    require(ate < 1.0, f"ATE {ate:.4f} m (gate 1.0 m)")
 
     t_window = HOST_WINDOW_FRAMES * float(data["dt"])
     host_params = dataclasses.replace(mp, mapper_backend="host")
@@ -1268,7 +1282,7 @@ def run_demo_sim(device, workdir):
           f"{dev_map_s:.2f} s ({n / dev_map_s:.1f} frames/s, {len(dm.segments)} segments), "
           f"agreement {agreement:.3f}", flush=True)
     require(agreement >= 0.8, f"host/device agreement {agreement:.3f} under 0.8")
-    return dict(info=info, n_lc=n_lc, ate=back["ate"], ate_odometry=back["ate_odometry"],
+    return dict(stages=stages, launches=counts, n_lc=n_lc, ate=ate, ate_odometry=ate_odom,
                 host_fps=n / host_map_s, agreement=agreement)
 
 
@@ -1611,6 +1625,90 @@ def run_rgbd_mapping(device, workdir):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the demo CLI on ROS1 bags, at full width
+# ---------------------------------------------------------------------------
+
+BAG_RUNS, BAG_FRAMES, BAG_DT = ["r0", "r1"], 64, 0.25
+BAG_MAPPER = dict(min_sightings=1, max_t_no_sightings=2.0,
+                  geometric_score_range=[0.05, 1.0], mapper_backend="device")
+DEMO_SUBMAP_ALIGN = os.path.join("params", "demo", "submap_align.yaml")
+
+
+def run_demo_bag(device, workdir):
+    """Two robots' ROS1 bags (rgb8 and 16UC1 frames of PERC_H x PERC_W,
+    CameraInfo, Odometry and the base -> camera extrinsic on /tf_static,
+    written by the port's BagWriter) through the demo CLI with
+    params/demo's nets at full width (seeded random weights), the device
+    mapper and params/demo's alignment (768-d semantics) without its submap
+    descriptor gate: one call a stage (--skip-* flags), so the
+    kernels' launches are read around stage 2 alone. Gates: every artifact
+    exists, each map's trajectory is the bag's odometry times the TF
+    extrinsic within 1e-6, all four kernels launch during stage 2."""
+    import yaml
+
+    from roman_tpu_torch.map.roman_map import load_roman_map
+    from roman_tpu_torch.sim.rgbd_bags import write_bag_world
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, DEMO_FASTSAM)) as f:
+        fastsam = dict(yaml.safe_load(f), **PERC_ARCHS)
+    with open(os.path.join(here, DEMO_SUBMAP_ALIGN)) as f:
+        submap_align = yaml.safe_load(f)
+    # random nets give frame descriptors no meaning, and the submap
+    # descriptor gate could drop every pair before registration
+    submap_align["submap_descriptor"] = None
+    root = os.path.join(workdir, "bags")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    params, odoms, T_base_cam = write_bag_world(
+        root, BAG_RUNS, BAG_FRAMES, PERC_H, PERC_W, BAG_DT, SEED, fastsam, BAG_MAPPER,
+        submap_align)
+    bag_mb = sum(os.path.getsize(os.path.join(root, f"{r}.bag")) for r in BAG_RUNS) / 2**20
+    print(f"bag demo: wrote {len(BAG_RUNS)} bags of {BAG_FRAMES} frames of {PERC_H}x{PERC_W} "
+          f"({bag_mb:.1f} MiB) in {time.perf_counter() - t0:.2f} s", flush=True)
+    out = os.path.join(workdir, "demo_bag")
+    stages, launches = {}, {}
+    for stage, skips in (("map", ("--skip-align", "--skip-rpgo")),
+                         ("align", ("--skip-map", "--skip-rpgo")),
+                         ("rpgo", ("--skip-map", "--skip-align"))):
+        st, launches[stage] = run_demo_cli(device, params, out, *skips, "--skip-self-lc")
+        stages.update(st)
+    pair = "_".join(BAG_RUNS)
+    tree = [f"map/{r}.pkl" for r in BAG_RUNS] + [
+        f"map/{BAG_RUNS[0]}.time.txt", f"align/{pair}/align.g2o", f"align/{pair}/align.png",
+        f"align/{pair}/align.pkl", "offline_rpgo/result.g2o", "offline_rpgo/result.png",
+        f"offline_rpgo/{BAG_RUNS[0]}.csv", "offline_rpgo/ate_rmse.txt", "params/data.yaml"]
+    missing = [p for p in tree if not os.path.exists(os.path.join(out, p))]
+    require(not missing, f"the bag demo did not write {missing}")
+    frames, worst = 0, 0.0
+    for run in BAG_RUNS:
+        m = load_roman_map(os.path.join(out, "map", f"{run}.pkl"))
+        idx = np.round(np.asarray(m.times) / BAG_DT).astype(int)
+        err = float(np.abs(m.trajectory - (odoms[run] @ T_base_cam)[idx]).max())
+        worst = max(worst, err)
+        frames += len(m.times)
+        sec = map_seconds(os.path.join(out, "map", f"{run}.time.txt"))
+        print(f"bag demo map {run}: {len(m.times)} frames, {len(m.segments)} segments; "
+              f"front end {len(m.times) / sec['fastsam']:.2f} frames/s, mapper "
+              f"{len(m.times) / sec['map']:.2f} frames/s; trajectory vs odometry x "
+              f"extrinsic max |d| {err:.3e}", flush=True)
+        require(len(m.times) >= BAG_FRAMES - 2, f"{run}'s map holds {len(m.times)} frames")
+    with open(os.path.join(out, "offline_rpgo", "ate_rmse.txt")) as f:
+        ate = float(f.read())
+    print(f"bag demo ({fastsam['seg_arch']}, {fastsam['vit_arch']}, "
+          f"{submap_align['semantics_dim']}-d): stage wall times "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+          + f"; mapping {frames / stages['map']:.2f} frames/s over both robots; ATE "
+          f"{ate:.4f} m (random nets); launches by stage {launches}; {nvidia_smi()}",
+          flush=True)
+    require(worst <= 1e-6, f"a map's trajectory is {worst:.3e} from the bag's odometry")
+    require(np.isfinite(ate), "the bag demo's ATE is not finite")
+    require(all(v > 0 for v in launches["align"].values()),
+            f"a kernel was not launched in the bag demo's stage 2: {launches['align']}")
+    return dict(stages=stages, launches=launches["align"], frames=frames)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1653,10 +1751,12 @@ def main() -> int:
         run_back_half(runs, workdir, dev)
     run_mapping_bench(dev)
     with tempfile.TemporaryDirectory() as workdir:
-        run_demo_sim(dev, workdir)
+        demo_sim = run_demo_sim(dev, workdir)
     run_perception_bench(dev)
     with tempfile.TemporaryDirectory() as workdir:
         run_rgbd_mapping(dev, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        demo_bag = run_demo_bag(dev, workdir)
 
     sources = {"clipper_solve": "roman_tpu_torch/csrc/clipper_solve.cu"}
     replaces = {"clipper_solve": "roman_tpu/align/clipper_pallas.py:50"}
@@ -1664,7 +1764,8 @@ def main() -> int:
         name=r["name"], route="cuda",
         source=sources.get(r["name"], "roman_tpu_torch/csrc/fused_register.cu"),
         replaces=replaces.get(r["name"], "roman_tpu/align/fused_register.py:111"),
-        launches=main_counts[r["name"]], max_abs_err=r["max_abs_err"],
+        launches=main_counts[r["name"]], demo_launches=demo_sim["launches"][r["name"]],
+        bag_demo_launches=demo_bag["launches"][r["name"]], max_abs_err=r["max_abs_err"],
         ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound"][0],
         bound_by=r["bound"][1], library_ms=None) for r in records]}

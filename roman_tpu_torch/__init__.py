@@ -11,8 +11,16 @@ to find:
 - ``roman_tpu_torch.csrc``    — hand-written CUDA C++ kernels (sm_90a),
                                 built on first use by ``kernels.build``.
 - ``roman_tpu_torch.ops``     — SE(3) helpers and batched Arun.
-- ``roman_tpu_torch.map``, ``data``, ``params``, ``sim`` — host copies that
-                                feed the alignment stage from map pickles.
+- ``roman_tpu_torch.map``       — the host and device mappers and the
+                                mapping runner.
+- ``roman_tpu_torch.perception`` — FastSAM-x, DINOv2/CLIP and the batched
+                                front end.
+- ``roman_tpu_torch.rpgo``      — the robust pose-graph back half.
+- ``roman_tpu_torch.data``, ``params``, ``sim`` — host copies: ROS1/ROS2
+                                bags, image archives, poses, cameras, the
+                                params schema, synthetic worlds.
+- ``roman_tpu_torch.demo``      — ``python -m roman_tpu_torch.demo``, the
+                                whole chain from a params directory.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``roman_tpu_torch.device.resolve_device``). Each kernel wrapper launches

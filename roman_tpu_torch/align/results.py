@@ -15,18 +15,17 @@ import dataclasses
 import json
 import os
 import pickle
-import struct
-import zlib
 from typing import List, Optional
 
 import numpy as np
 
+from roman_tpu_torch.data.png import write_png
+from roman_tpu_torch.data.pose_data import PoseData
 from roman_tpu_torch.map.roman_map import RomanMap, Submap
 from roman_tpu_torch.params.submap_align_params import (
     SubmapAlignInputOutput,
     SubmapAlignParams,
 )
-from roman_tpu_torch.data.pose_data import PoseData
 from roman_tpu_torch.ops import se3_np
 
 
@@ -95,24 +94,6 @@ def _colorize(mat, cmap: str, vmin: float, vmax: Optional[float]) -> np.ndarray:
     return np.round(rgb).astype(np.uint8)
 
 
-def _write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an (h, w, 3) uint8 image as an 8-bit RGB png (zlib, no
-    filtering)."""
-    h, w, _ = rgb.shape
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           rgb.reshape(h, 3 * w)], axis=1)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
-
-
 def plot_align_results(results: SubmapAlignResults) -> np.ndarray:
     """Heatmap panels over the pairwise submap-alignment grid, as an
     (h, w, 3) uint8 image.
@@ -178,7 +159,7 @@ def save_submap_align_results(
 ):
     os.makedirs(results.submap_io.output_dir, exist_ok=True)
 
-    _write_png(results.submap_io.output_img, plot_align_results(results))
+    write_png(results.submap_io.output_img, plot_align_results(results))
 
     with open(results.submap_io.output_matrix, "wb") as f:
         pickle.dump(

@@ -42,6 +42,18 @@ class CameraParams:
         K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1.0]])
         return cls(K=K, width=width, height=height)
 
+    @classmethod
+    def from_bag(cls, path: str, topic: str) -> "CameraParams":
+        """Intrinsics from a sensor_msgs/CameraInfo topic in a ROS1 bag or
+        rosbag2 recording (reference pulls CameraParams.from_bag via
+        robotdatapy, data_params.py:242-249)."""
+        from roman_tpu_torch.data import rosbag
+
+        info = rosbag.read_camera_info(path, topic)
+        return cls(K=np.asarray(info["K"], np.float64).reshape(3, 3),
+                   width=int(info["width"]), height=int(info["height"]),
+                   D=np.asarray(info["D"], np.float64))
+
 
 def xyz_to_pixel(points: torch.Tensor, K) -> torch.Tensor:
     """(..., n, 3) camera-frame points -> (..., n, 2) [u, v] pixels."""

@@ -4,7 +4,7 @@ roman_tpu/data/pose_data.py).
 Standalone replacement for the robotdatapy.data.pose_data.PoseData
 dependency of the reference (used for GT poses in submap_align.py:41-58,
 LC retiming in combine_loop_closures.py:176-183, and g2o export in
-results.py:154). Supports array, csv (TUM: t x y z qx qy qz qw), and
+results.py:154). Supports array, csv (TUM: t x y z qx qy qz qw), bag and
 yaml-spec construction; pose(t) interpolates (lerp + slerp) between the
 bracketing samples like robotdatapy.
 """
@@ -49,11 +49,15 @@ class PoseData:
 
     @classmethod
     def from_bag(cls, path, topic, **kw):
-        """Pose stream from a ROS1 bag topic. The bag readers are not
-        ported yet: ROADMAP.md, Queue 1, item 17 ports the data layer."""
-        raise NotImplementedError(
-            "reading poses from a bag is not ported yet (ROADMAP.md, "
-            "Queue 1, item 17); use a csv pose file")
+        """Pose stream from a ROS1 bag or rosbag2 topic (Odometry /
+        PoseStamped / PoseWithCovarianceStamped / TransformStamped /
+        TFMessage), via the pure-python reader in
+        roman_tpu_torch.data.rosbag (reference reads bags through
+        robotdatapy, data_params.py:200-294)."""
+        from roman_tpu_torch.data import rosbag
+
+        times, T = rosbag.read_poses(path, topic)
+        return cls(times=times, poses=T, **kw)
 
     @classmethod
     def from_csv_options(cls, path, csv_options: dict, **kw):

@@ -4,8 +4,9 @@ timestamp, jointly Umeyama-align, report translation RMSE.
 Standalone replacement for the reference's evo-based evaluate
 (roman/offline_rpgo/evaluate.py:10-53): evo's sync.associate_trajectories
 (max_diff=0.1), traj.align (Umeyama, no scale), APE translation RMSE.
-Host copy of roman_tpu/rpgo/evaluate.py; matplotlib is imported only when
-a plot is asked for (output_dir).
+Host copy of roman_tpu/rpgo/evaluate.py; the plot asked for by output_dir
+is drawn with numpy (rpgo.plot_g2o), as the machine with the card has no
+matplotlib.
 """
 
 from __future__ import annotations
@@ -85,17 +86,14 @@ def evaluate(
     rmse = float(np.sqrt(np.mean(np.sum((p_al - p_gt) ** 2, axis=1))))
 
     if output_dir is not None:
-        import matplotlib
+        from roman_tpu_torch.data.png import write_png
+        from roman_tpu_torch.rpgo.plot_g2o import render_trajectories
 
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
-        fig = plt.figure()
-        ax = fig.add_subplot(projection="3d")
-        ax.plot(*p_gt.T, label="reference", color="gray")
-        ax.plot(*p_al.T, label="estimate (aligned)", color="tab:blue")
-        ax.legend()
+        # the reference in gray and the aligned estimate in blue, seen
+        # from above (roman_tpu draws a 3D matplotlib plot)
+        img = render_trajectories({"reference": p_gt, "estimate": p_al},
+                                  {"reference": (128, 128, 128),
+                                   "estimate": (31, 119, 180)})
         os.makedirs(os.path.join(output_dir, "offline_rpgo"), exist_ok=True)
-        fig.savefig(os.path.join(output_dir, "offline_rpgo", "aligned_gt_est.png"))
-        plt.close(fig)
+        write_png(os.path.join(output_dir, "offline_rpgo", "aligned_gt_est.png"), img)
     return rmse

@@ -1,8 +1,10 @@
-"""Host utility helpers: env expansion and AABB tests (copied from
-roman_tpu/utils.py; reference roman/utils.py:132-169)."""
+"""Host utility helpers: env expansion, recursive dict merge and AABB tests
+(copied from roman_tpu/utils.py; reference roman/utils.py:132-169), and the
+import of an optional package."""
 
 from __future__ import annotations
 
+import importlib
 from os.path import expanduser, expandvars
 
 import numpy as np
@@ -15,6 +17,31 @@ def expandvars_recursive(path: str) -> str:
         if expanded == path:
             return expanduser(expanded)
         path = expanded
+
+
+def combinedicts_recursive(d1: dict, d2: dict) -> dict:
+    """Merge d2 over d1, recursing into dict values (utils.py:140-158)."""
+    res = {}
+    for k, v in d2.items():
+        if isinstance(v, dict) and isinstance(d1.get(k), dict):
+            res[k] = combinedicts_recursive(d1[k], v)
+        else:
+            res[k] = v
+    for k, v in d1.items():
+        if k not in d2:
+            res[k] = v
+    return res
+
+
+def require(module: str, what: str):
+    """Import an optional package (cv2, matplotlib) where only it does the
+    work, or raise an ImportError that names it: the machine with the card
+    has neither, and nothing falls back quietly."""
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise ImportError(f"{what} needs the {module!r} package, which is not "
+                          "installed") from e
 
 
 def aabb_intersects(p1: np.ndarray, p2: np.ndarray) -> bool:

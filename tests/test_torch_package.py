@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port, on the CPU.
 
 - roman_tpu_torch imports neither jax (nor flax) nor anything of
-  roman_tpu, nor scikit-learn, OpenCV, orbax, transformers or ultralytics:
+  roman_tpu, nor scikit-learn, OpenCV, matplotlib, orbax, transformers or
+  ultralytics:
   checked by importing every module in a fresh interpreter
   where they are blocked, and by a scan of every import statement of the
   package and of chip_smoke.py;
@@ -40,8 +41,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "roman_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "roman_tpu", "sklearn", "cv2", "orbax",
-           "transformers", "ultralytics")
+BLOCKED = ("jax", "jaxlib", "flax", "roman_tpu", "sklearn", "cv2", "matplotlib",
+           "orbax", "transformers", "ultralytics")
 
 
 def _blocked(module: str) -> bool:
@@ -116,8 +117,16 @@ def test_entry_points_without_device_raise_on_a_host_without_a_card(no_card, tmp
         solver.solve_pose_graph(graph)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         solver.rpgo_solve_g2o(str(tmp_path / "in.g2o"), str(tmp_path))
+    from roman_tpu_torch import demo
+    from roman_tpu_torch.params.data_params import DataParams
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo.main(["-p", str(ROOT / "params" / "demo_sim"), "-o", str(tmp_path / "out")])
     assert not any(tmp_path.iterdir())
     assert device.resolve_device("cpu") == torch.device("cpu")
+    # host code needs no card
+    cam = DataParams.from_yaml(str(ROOT / "params" / "demo_sim" / "data.yaml")).load_camera_params()
+    assert (cam.width, cam.height) == (640, 480)
 
 
 def test_mapping_entry_points_without_device_raise_on_a_host_without_a_card(no_card):
