@@ -90,11 +90,27 @@ N = 1600 candidate associations each), and then:
    mapper and 768-d semantics: every artifact, each map's trajectory equal
    to the odometry times the extrinsic within 1e-6, all four kernels
    launched in stage 2, frames/s of mapping and each stage's wall time;
-14. prints one JSON line of per-kernel numbers (launches on the main path,
-   and on phases 10 and 13's demo runs), the card's name and power limit
-   again, and last {"ok": true, "device": {...}}. No kernel of the port
-   lies on the mapping or perception paths (phases 9 and 11-12 launch
-   none).
+14. drives the reference's per-pair surface on phase 3's tree:
+   ROMANRegistration (the grid's configuration, 768-d) and
+   DistRegWithPruning on the first 64 submap pairs at their unpadded
+   sizes, on the card and on the CPU (associations equal, T_align within
+   1e-4, all four kernels launched, ms a register call beside the grid's
+   time a pair); a shape sweep (1x1, 1x40, 7x13, 40x40 with 768-d
+   descriptors and with none, 100x100) and the largest square the kernels
+   take (at a 4-matvec solve budget) against the CPU, and the shapes just
+   above the limits of clipper_solve and round_refine refused with
+   ValueError before any launch; python -m roman_tpu_torch.demo.loop_closures
+   (in-process) on the first two robots of phase 10's demo run, whose EDGE
+   lines must equal that run's align stage for the pair (both at
+   submap_align's default chunk: the card's sums depend on the chunk),
+   all four kernels launched; the viz CLIs as
+   processes, which without matplotlib (or cv2) must exit non-zero with an
+   ImportError naming it and write nothing, and with it write their files;
+15. prints one JSON line of per-kernel numbers (launches on the main path,
+   on phases 10 and 13's demo runs, and on phase 14's classes and CLI), the
+   card's name and power limit again, and last {"ok": true, "device":
+   {...}}. No kernel of the port lies on the mapping or perception paths
+   (phases 9 and 11-12 launch none).
 
 Every check raises on failure, so the script then exits non-zero and
 prints no result line. Without a CUDA card it exits with code 1 at once.
@@ -510,6 +526,12 @@ def check_kernels(feats, auxs, cfg, ptxas=(), reps=10, plain_reps=3):
 # ---------------------------------------------------------------------------
 
 ROBOTS = ["robot0", "robot1"]
+# the bench world's submaps: capacity 40, radius 15 m, a submap every 10 m,
+# no time threshold, pruning by time
+MAIN_PATH_PARAMS = dict(
+    method="roman", semantics_dim=DESC_DIM, submap_max_size=CAPACITY,
+    submap_center_time=float("inf"), submap_pruning_method="time",
+    cosine_min=0.5, cosine_max=0.9)
 
 
 def run_main_path(runs, maps, workdir, device):
@@ -534,12 +556,7 @@ def run_main_path(runs, maps, workdir, device):
             f.write(f"type: csv\npath: {csv}\n")
         inputs.append(pkl)
         gts.append(gy)
-    # the bench world's submaps: capacity 40, radius 15 m, a submap every
-    # 10 m, no time threshold, pruning by time
-    params = SubmapAlignParams(
-        method="roman", semantics_dim=DESC_DIM, submap_max_size=CAPACITY,
-        submap_center_time=float("inf"), submap_pruning_method="time",
-        cosine_min=0.5, cosine_max=0.9)
+    params = SubmapAlignParams(**MAIN_PATH_PARAMS)
     out = os.path.join(workdir, "align", "_".join(ROBOTS))
     io = SubmapAlignInputOutput(inputs=inputs, output_dir=out, run_name="align",
                                 input_gt_pose_yaml=gts, robot_names=ROBOTS)
@@ -1283,7 +1300,8 @@ def run_demo_sim(device, workdir):
           f"agreement {agreement:.3f}", flush=True)
     require(agreement >= 0.8, f"host/device agreement {agreement:.3f} under 0.8")
     return dict(stages=stages, launches=counts, n_lc=n_lc, ate=ate, ate_odometry=ate_odom,
-                host_fps=n / host_map_s, agreement=agreement)
+                host_fps=n / host_map_s, agreement=agreement, out=out, runs=runs,
+                params=pdir)
 
 
 # ---------------------------------------------------------------------------
@@ -1709,6 +1727,339 @@ def run_demo_bag(device, workdir):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the per-pair surface
+# ---------------------------------------------------------------------------
+
+PER_PAIR_PAIRS = 64
+# n x m of the shape sweep, each with 768-d descriptors and with none (the
+# last only with descriptors)
+SWEEP = ((1, 1), (1, 40), (7, 13), (40, 40), (100, 100))
+# the solve budget at the largest shape: 4 streams of its M (about 0.6 GB)
+# instead of the default's 51
+LARGEST_SOLVER = dict(warmup_iters=1, outer_iters=1, inner_iters=1)
+VIZ_CLIS = ("map_viz", "o3d_viz", "submap_viz", "association_vid",
+            "association_vid --camera-video")
+
+
+def per_pair_classes(cfg, device):
+    """ROMANRegistration at the grid's configuration (gravity, volume, pca,
+    768-d semantics, its cos_min and cos_max) and DistRegWithPruning at
+    the clipper+prune grid's, on device."""
+    from roman_tpu_torch.align.dist_reg_with_pruning import DistRegWithPruning
+    from roman_tpu_torch.align.roman_registration import (ROMANParams,
+                                                          ROMANRegistration)
+
+    roman = ROMANRegistration(ROMANParams(
+        gravity=True, volume=True, pca=True, semantics_dim=DESC_DIM,
+        sigma=cfg.sigma, epsilon=cfg.epsilon, mindist=cfg.mindist,
+        cos_min=cfg.cos_min, cos_max=cfg.cos_max), device=device)
+    prune = DistRegWithPruning(cfg.sigma, cfg.epsilon, mindist=cfg.mindist,
+                               shape_epsilon=cfg.epsilon_shape,
+                               cos_min=cfg.cos_min, device=device)
+    return {"ROMANRegistration": roman, "DistRegWithPruning": prune}
+
+
+def same_registration(reg_a, reg_b, s1, s2, what: str):
+    """Both registrations of one pair, each through its engine on its own
+    device (what register returns, plus the engine's transform), give
+    equal associations and, where a transform is defined, the engine's
+    T_align within 1e-4 (the card's own, not the host's Arun on the
+    associations); with fewer associations than dim, T_align raises.
+    Returns the associations and the transforms' largest difference (0
+    where none was compared)."""
+    from roman_tpu_torch.align.object_registration import \
+        InsufficientAssociationsException
+
+    res = [reg._solve(*reg._features(s1, s2)) for reg in (reg_a, reg_b)]
+    A, B = (np.argwhere(r.sel.cpu().numpy()) for r in res)
+    require(A.shape == B.shape and np.array_equal(A, B),
+            f"{what}: associations differ, {A.tolist()} against {B.tolist()}")
+    err = 0.0
+    if len(A) >= reg_a.dim:
+        Ta, Tb = (r.T_align.cpu().numpy() for r in res)
+        err = float(np.abs(Ta - Tb).max())
+        require(err <= 1e-4, f"{what}: the engine's T_align differs by {err:.3g}")
+    elif len(A):
+        for reg, X in ((reg_a, A), (reg_b, B)):
+            try:
+                reg.T_align(s1, s2, X)
+            except InsufficientAssociationsException:
+                continue
+            raise AssertionError(f"{what}: T_align of {len(X)} associations did not raise")
+    return A, err
+
+
+def sweep_pair(n, m, desc_dim, seed):
+    """n and m objects: the first min(n, m) of the second map are the
+    first map's under a yaw and a shift, with 2 cm of noise, and their
+    descriptors (desc_dim of them, or none) noisy copies; the rest are
+    drawn anew."""
+    from roman_tpu_torch.map.roman_map import SegmentData
+
+    rng = np.random.default_rng(seed)
+    k = min(n, m)
+
+    def objects(count):
+        c = rng.uniform(-20.0, 20.0, (count, 3)) * np.array([1.0, 1.0, 0.1])
+        return (c, rng.uniform(0.5, 4.0, count), rng.dirichlet(np.ones(3), count),
+                rng.uniform(0.2, 2.0, (count, 3)),
+                rng.normal(size=(count, desc_dim)) if desc_dim else None)
+
+    c1, v1, p1, e1, d1 = objects(n)
+    c2, v2, p2, e2, d2 = objects(m)
+    a = rng.uniform(-np.pi, np.pi)
+    R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1.0]])
+    t = rng.uniform(-5.0, 5.0, 3)
+    c2[:k] = (c1[:k] - t) @ R + rng.normal(scale=0.02, size=(k, 3))
+    v2[:k], p2[:k], e2[:k] = v1[:k], p1[:k], e1[:k]
+    if desc_dim:
+        d2[:k] = d1[:k] + rng.normal(scale=0.1, size=(k, desc_dim))
+
+    def segs(c, v, p, e, d, id0):
+        return [SegmentData(id=id0 + i, center=c[i], volume=float(v[i]),
+                            linearity=float(p[i, 0]), planarity=float(p[i, 1]),
+                            scattering=float(p[i, 2]), extent=e[i],
+                            semantic_descriptor=None if d is None else d[i])
+                for i in range(len(c))]
+
+    return segs(c1, v1, p1, e1, d1, 0), segs(c2, v2, p2, e2, d2, 10000)
+
+
+def run_viz_clis(workdir, params_dir):
+    """The viz CLIs on phase 3's tree, as processes started together.
+    Where matplotlib (or cv2, for the videos) is absent, each must exit
+    non-zero with an ImportError naming the package and write nothing;
+    where it is present, each must write its files."""
+    import importlib.util
+
+    have = {p: importlib.util.find_spec(p) is not None for p in ("matplotlib", "cv2")}
+    viz = os.path.join(workdir, "viz")
+    pkl = os.path.join(workdir, "map", f"{ROBOTS[0]}.pkl")
+    align_pkl = os.path.join(workdir, "align", "_".join(ROBOTS), "align.pkl")
+    jobs = {
+        "map_viz": ([pkl, "-o", os.path.join(viz, "map.png")],
+                    "matplotlib", [os.path.join(viz, "map.png")]),
+        "o3d_viz": ([pkl, "-o", os.path.join(viz, "o3d.png"), "--no-orig"],
+                    "matplotlib", [os.path.join(viz, "o3d.png")]),
+        "submap_viz": (["-p", params_dir, "-o", workdir, "-t"], "matplotlib",
+                       [os.path.join(workdir, "submap_viz")]),
+        "association_vid": ([align_pkl, "-o", os.path.join(viz, "assoc")],
+                            "matplotlib", [os.path.join(viz, "assoc")]),
+        "association_vid --camera-video": (
+            [align_pkl, "-o", os.path.join(viz, "camera"), "--camera-video"], "cv2",
+            [os.path.join(viz, "camera")]),
+    }
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"roman_tpu_torch.demo.{name.split()[0]}", *argv],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, (argv, _, _) in jobs.items()}
+    t0 = time.perf_counter()
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        _, pkg, outputs = jobs[name]
+        written = [p for p in outputs if os.path.exists(p)]
+        if have[pkg]:
+            require(proc.returncode == 0 and len(written) == len(outputs),
+                    f"{name} failed where {pkg} is installed: {err[-2000:]}")
+        else:
+            last = err.strip().splitlines()[-1] if err.strip() else ""
+            require(proc.returncode != 0 and last.startswith("ImportError")
+                    and repr(pkg) in last and not written,
+                    f"{name} without {pkg}: rc {proc.returncode}, wrote {written}, "
+                    f"said {last!r}")
+        print(f"viz CLI {name}: rc {proc.returncode}, {pkg} "
+              f"{'installed' if have[pkg] else 'absent'}, wrote "
+              f"{len(written)} of {len(outputs)}"
+              + ("" if have[pkg] else f" ({last})"), flush=True)
+    return time.perf_counter() - t0
+
+
+def register_breakdown(reg, segs, reps=16):
+    """Where a register call's time goes, on the first pair: packing the
+    two object lists into features, register_clipper (the four launches
+    and the transform), the selection's copy to the host; and the card's
+    busy time in a call from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from roman_tpu_torch.align.registration import register_clipper
+
+    s1, s2 = segs[0]
+    parts = dict(pack=0.0, register_clipper=0.0, copy=0.0)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        f1, f2 = reg._features(s1, s2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = register_clipper(f1, f2, reg.cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res.sel.cpu()
+        t3 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k] += v * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            reg.register(s1, s2)
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    kernels = {k: sum(e.self_device_time_total for e in events if f"{k}_kernel" in e.name)
+               / 1e3 / reps for k in ("assoc_terms", "build_affinity", "clipper_solve",
+                                      "round_refine")}
+    print(f"a register call ({len(s1)} x {len(s2)}): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+          + f"; profiled {wall:.3f} ms a call, the card busy {busy:.3f} ms in "
+          f"{len(events) / reps:.0f} device events (kernels: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in kernels.items()) + " ms)", flush=True)
+
+
+def run_per_pair(submaps, cfg, grid_pairs_per_s, workdir, demo, device):
+    """The reference's per-pair classes and the loop_closures CLI on the
+    card: the classes on the bench world's first PER_PAIR_PAIRS submap
+    pairs at their unpadded sizes against their CPU runs, with every launch
+    count set to 0 just before and read just after; the shape sweep and
+    the largest shape the kernels take, against the CPU, and the shapes
+    above the limits refused with ValueError before any launch; the
+    loop_closures CLI on the first two robots of phase 10's demo run
+    (`demo`, run_demo_sim's result) against that run's align stage, both
+    at submap_align's default chunk; the viz CLIs on phase 3's tree.
+    Returns the launches of the classes' and of the CLI's run."""
+    import dataclasses
+
+    import torch
+    import yaml
+
+    from roman_tpu_torch.align import fused_register as fr
+    from roman_tpu_torch.align.clipper import ClipperSolveParams
+    from roman_tpu_torch.align.object_registration import ObjectRegistration
+    from roman_tpu_torch.demo import loop_closures
+
+    cpu = torch.device("cpu")
+    on_card, on_cpu = per_pair_classes(cfg, device), per_pair_classes(cfg, cpu)
+    n1 = len(submaps[1])
+    pairs = [(k // n1, k % n1) for k in range(PER_PAIR_PAIRS)]
+    segs = [(submaps[0][i].segments, submaps[1][j].segments) for i, j in pairs]
+    results, ms = {}, {}
+    torch.cuda.synchronize()
+    reset_launches()
+    for name, reg in on_card.items():
+        t0 = time.perf_counter()
+        results[name] = [reg.register(s1, s2) for s1, s2 in segs]
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / len(segs)
+    counts = read_launches()
+    cpu_s = time.perf_counter()
+    t_err = 0.0
+    for name, reg in on_cpu.items():
+        for (i, j), (s1, s2), A in zip(pairs, segs, results[name]):
+            again, err = same_registration(on_card[name], reg, s1, s2,
+                                           f"{name} on pair ({i}, {j})")
+            t_err = max(t_err, err)
+            require(np.array_equal(A, again),
+                    f"{name} on pair ({i}, {j}) is not repeatable on the card")
+    cpu_s = time.perf_counter() - cpu_s
+    sizes = np.array([(len(a), len(b)) for a, b in segs])
+    lcs = {k: sum(len(A) >= 4 for A in v) for k, v in results.items()}
+    print(f"per-pair classes on the first {len(segs)} pairs (n {sizes[:, 0].min()}-"
+          f"{sizes[:, 0].max()}, m {sizes[:, 1].min()}-{sizes[:, 1].max()}, unpadded): "
+          "associations equal to the CPU's, the engine's T_align within "
+          f"{t_err:.3g} of the CPU's (limit 1e-4); "
+          + ", ".join(f"{k} {v:.3f} ms a register call ({lcs[k]} pairs with >= 4 "
+                      "associations)" for k, v in ms.items())
+          + f", against the grid's {1e3 / grid_pairs_per_s:.4f} ms a pair at chunk "
+          f"{KERNEL_PAIRS}; launches {counts}; the CPU's runs {cpu_s:.1f} s; "
+          f"{nvidia_smi()}", flush=True)
+    require(all(v > 0 for v in counts.values()),
+            f"a kernel was not launched by the per-pair classes: {counts}")
+    register_breakdown(on_card["ROMANRegistration"], segs)
+
+    # the shape sweep
+    roman_card, roman_cpu = on_card["ROMANRegistration"], on_cpu["ROMANRegistration"]
+    t0 = time.perf_counter()
+    swept, t_err = [], 0.0
+    for s, (n, m) in enumerate(SWEEP):
+        for D in ((DESC_DIM, 0) if n * m < 10000 else (DESC_DIM,)):
+            s1, s2 = sweep_pair(n, m, D, seed=100 + s)
+            A, err = same_registration(roman_card, roman_cpu, s1, s2,
+                                       f"sweep {n} x {m}, D {D}")
+            t_err = max(t_err, err)
+            swept.append(f"{n}x{m}/D{D}: {len(A) if A.size else 0}")
+    print(f"shape sweep, card against CPU (associations found): {', '.join(swept)}; "
+          f"the engine's T_align within {t_err:.3g} of the CPU's; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the largest square the kernels take, and the shapes above the limits
+    small = dataclasses.replace(roman_card.cfg, solver=ClipperSolveParams(**LARGEST_SOLVER))
+    k = fr.largest_side(small.solver.n_restarts, device)
+    t0 = time.perf_counter()
+    s1, s2 = sweep_pair(k, k, DESC_DIM, seed=200)
+    big_card = ObjectRegistration(small, device=device)
+    A = big_card.register(s1, s2)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    B = ObjectRegistration(small, device=cpu).register(s1, s2)
+    cpu_big_s = time.perf_counter() - t0
+    require(np.array_equal(A, B), f"{k} x {k}: associations differ from the CPU's")
+    refused = {}
+    reset_launches()
+    for n, m in ((k + 1, k + 1), (1, fr.ROUND_MAX_SIDE + 1)):
+        s1, s2 = sweep_pair(n, m, DESC_DIM, seed=201)
+        try:
+            big_card.register(s1, s2)
+        except ValueError as e:
+            refused[(n, m)] = str(e)
+        require((n, m) in refused, f"{n} x {m} was not refused")
+    require(not any(read_launches().values()), "a refused shape launched a kernel")
+    print(f"largest square the kernels take: {k} x {k} (N = {k * k}) at 1 restart, "
+          f"{len(A)} associations equal to the CPU's (solve budget {LARGEST_SOLVER}; "
+          f"card {card_s:.2f} s, CPU {cpu_big_s:.2f} s); refused: "
+          + "; ".join(f"{n} x {m}: {msg}" for (n, m), msg in refused.items()), flush=True)
+    require("clipper_solve" in refused[(k + 1, k + 1)] and
+            "round_refine" in refused[(1, fr.ROUND_MAX_SIDE + 1)],
+            "a refusal does not name the kernel whose limit it is")
+
+    # the loop_closures CLI on phase 10's first two robots, with the
+    # demo's params, against the demo's align stage for that pair
+    r0, r1 = demo["runs"][:2]
+    out = os.path.join(workdir, "loop_closures")
+    reset_launches()
+    t0 = time.perf_counter()
+    loop_closures.main([os.path.join(demo["out"], "map", f"{r}.pkl") for r in (r0, r1)]
+                       + ["-o", out, "-p", os.path.join(demo["params"], "submap_align.yaml"),
+                          "-g"] + [os.path.join(demo["out"], "gt", f"{r}.yaml")
+                                   for r in (r0, r1)]
+                       + (["--cpu"] if device.type == "cpu" else []))
+    torch.cuda.synchronize()
+    lc_s = time.perf_counter() - t0
+    lc_counts = read_launches()
+
+    def edges(path):
+        with open(path) as f:
+            return [ln for ln in f.read().splitlines() if ln.startswith("EDGE")]
+
+    got = edges(os.path.join(out, "align.g2o"))
+    ref = edges(os.path.join(demo["out"], "align", f"{r0}_{r1}", "align.g2o"))
+    print(f"loop_closures CLI on {r0} and {r1} of phase 10: {len(got)} EDGE lines, "
+          f"{lc_s:.2f} s, launches {lc_counts}", flush=True)
+    require(got and got == ref,
+            "the loop_closures CLI's EDGE lines differ from the demo's align stage")
+    require(all(v > 0 for v in lc_counts.values()),
+            f"a kernel was not launched by the loop_closures CLI: {lc_counts}")
+    pdir = os.path.join(workdir, "per_pair_params")
+    os.makedirs(pdir)
+    with open(os.path.join(pdir, "submap_align.yaml"), "w") as f:
+        yaml.safe_dump(MAIN_PATH_PARAMS, f)
+    with open(os.path.join(pdir, "data.yaml"), "w") as f:
+        yaml.safe_dump({"runs": ROBOTS}, f)
+    run_viz_clis(workdir, pdir)
+    return dict(launches=counts, cli_launches=lc_counts, ms=ms, largest=k)
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1718,6 +2069,7 @@ def main() -> int:
         return 1
     from roman_tpu_torch.kernels import build
 
+    t_script = time.perf_counter()
     smi = nvidia_smi()
     print(smi, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1740,23 +2092,26 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     records = check_kernels(feats, auxs, cfg, ptxas)
-    with tempfile.TemporaryDirectory() as workdir:
-        main_counts, _, _ = run_main_path(runs, maps, workdir, dev)
+    with tempfile.TemporaryDirectory() as main_dir, \
+            tempfile.TemporaryDirectory() as demo_dir:
+        main_counts, _, _ = run_main_path(runs, maps, main_dir, dev)
         require(all(v > 0 for v in main_counts.values()),
                 f"a kernel was not launched on the main path: {main_counts}")
-        run_grid(feats, auxs, runs, cfg)
+        grid = run_grid(feats, auxs, runs, cfg)
         run_arithmetic_mean(feats, auxs, cfg)
         run_prune_grid(feats, auxs, runs, cfg)
         run_ransac_grid(feats, auxs, runs, cfg)
-        run_back_half(runs, workdir, dev)
-    run_mapping_bench(dev)
-    with tempfile.TemporaryDirectory() as workdir:
-        demo_sim = run_demo_sim(dev, workdir)
-    run_perception_bench(dev)
-    with tempfile.TemporaryDirectory() as workdir:
-        run_rgbd_mapping(dev, workdir)
-    with tempfile.TemporaryDirectory() as workdir:
-        demo_bag = run_demo_bag(dev, workdir)
+        run_back_half(runs, main_dir, dev)
+        run_mapping_bench(dev)
+        demo_sim = run_demo_sim(dev, demo_dir)  # kept for phase 14
+        run_perception_bench(dev)
+        with tempfile.TemporaryDirectory() as workdir:
+            run_rgbd_mapping(dev, workdir)
+        with tempfile.TemporaryDirectory() as workdir:
+            demo_bag = run_demo_bag(dev, workdir)
+        t0 = time.perf_counter()
+        per_pair = run_per_pair(submaps, cfg, grid["pairs_per_s"], main_dir, demo_sim, dev)
+        print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
     sources = {"clipper_solve": "roman_tpu_torch/csrc/clipper_solve.cu"}
     replaces = {"clipper_solve": "roman_tpu/align/clipper_pallas.py:50"}
@@ -1765,10 +2120,14 @@ def main() -> int:
         source=sources.get(r["name"], "roman_tpu_torch/csrc/fused_register.cu"),
         replaces=replaces.get(r["name"], "roman_tpu/align/fused_register.py:111"),
         launches=main_counts[r["name"]], demo_launches=demo_sim["launches"][r["name"]],
-        bag_demo_launches=demo_bag["launches"][r["name"]], max_abs_err=r["max_abs_err"],
+        bag_demo_launches=demo_bag["launches"][r["name"]],
+        per_pair_launches=per_pair["launches"][r["name"]],
+        loop_closures_launches=per_pair["cli_launches"][r["name"]],
+        max_abs_err=r["max_abs_err"],
         ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound"][0],
         bound_by=r["bound"][1], library_ms=None) for r in records]}
+    print(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps(line), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

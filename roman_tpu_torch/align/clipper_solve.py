@@ -28,6 +28,7 @@ tensors. The kernel solves each pair on a thread block cluster of
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -111,6 +112,43 @@ def clipper_solve_plain(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
     return U[rows, best], d[rows, best, 0], F[rows, best], omega[rows, best]
 
 
+def solve_fits(N: int, n: int, m: int, R: int, C: int, device) -> tuple:
+    """(need, avail, clusters) of the kernel's register-load path, the
+    path every shape can fall back to: the shared memory a block needs,
+    the most the card lets a block have, and how many clusters of C such
+    blocks can be resident. Builds the kernel on first use; asks the
+    runtime once a shape and card."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _solve_fits(N, n, m, R, C, index)
+
+
+@functools.lru_cache(maxsize=1024)
+def _solve_fits(N: int, n: int, m: int, R: int, C: int, index: int) -> tuple:
+    fn = build.function("clipper_solve", "clipper_solve_fits",
+                        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+    need, avail, clusters = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+    with torch.cuda.device(index):
+        err = fn(N, n, m, R, C, ctypes.byref(need), ctypes.byref(avail),
+                 ctypes.byref(clusters))
+    build.check_launch("clipper_solve_fits", err)
+    return need.value, avail.value, clusters.value
+
+
+def check_solve_shape(n: int, m: int, R: int, P: int, device) -> None:
+    """Raise ValueError unless the kernel takes P pairs of N = n*m
+    associations at R restarts on this card: u, its bf16 copy and the
+    valid mask (2R*N + N floats) live in each block's shared memory, which
+    caps N (about 18,000 at R = 1 on an H100)."""
+    C = cluster_size(P, torch.cuda.get_device_properties(device).multi_processor_count)
+    need, avail, clusters = solve_fits(n * m, n, m, R, C, device)
+    if need > avail or clusters < 1:
+        raise ValueError(
+            f"clipper_solve takes N = n*m only while its vectors fit a block's "
+            f"shared memory: N = {n * m} ({n} x {m}) at {R} restart(s) and {C} "
+            f"blocks a pair needs {need} bytes, the card allows {avail}")
+
+
 def clipper_solve(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
                   params: ClipperSolveParams = ClipperSolveParams()):
     """CLIPPER solve of every pair: launches the CUDA kernel for CUDA
@@ -128,6 +166,8 @@ def clipper_solve(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
     R = params.n_restarts
     if not 1 <= R <= MAX_RESTARTS:
         raise ValueError(f"n_restarts must be in [1, {MAX_RESTARTS}], got {R}")
+    if dev.type == "cuda":  # a card's limit; other devices (meta) have none
+        check_solve_shape(n, m, R, P, dev)
     noise = torch.as_tensor(restart_noise(R, N), device=dev)
     u = torch.empty((P, N), dtype=torch.float32, device=dev)
     d = torch.empty(P, dtype=torch.float32, device=dev)

@@ -38,7 +38,8 @@ import torch
 
 from roman_tpu_torch.align import clipper
 from roman_tpu_torch.align.clipper import ClipperSolveParams
-from roman_tpu_torch.align.clipper_solve import clipper_solve, clipper_solve_plain
+from roman_tpu_torch.align.clipper_solve import (check_solve_shape, clipper_solve,
+                                                 clipper_solve_plain)
 from roman_tpu_torch.align.invariants import SubmapFeatures
 from roman_tpu_torch.kernels import build
 
@@ -48,6 +49,9 @@ _F = ctypes.c_float
 # pairs per slab of the plain affinity build: bounds its (slab, N, N) f32
 # intermediates (about 160 MB each at N = 1600)
 _PLAIN_SLAB = 16
+# n, m and max_steps that round_refine takes at most (kRoundMaxSide of
+# csrc/fused_register.cu: a thread and a bitmask bit a selected entry)
+ROUND_MAX_SIDE = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,6 +307,14 @@ def round_refine_plain(M, u, F, omega, n: int, m: int,
     return sel.reshape(P, n * m), count
 
 
+def check_round_shape(n: int, m: int) -> None:
+    """Raise ValueError unless round_refine takes n x m (each side up to
+    ROUND_MAX_SIDE)."""
+    if n > ROUND_MAX_SIDE or m > ROUND_MAX_SIDE:
+        raise ValueError(f"round_refine takes n and m up to {ROUND_MAX_SIDE}, "
+                         f"got {n} x {m}")
+
+
 def round_refine(M, u, F, omega, n: int, m: int, inv: FusedInvariantStatics):
     """Rounding and refinement of every pair: the kernel for CUDA tensors,
     the plain twin for CPU tensors (see round_refine_plain)."""
@@ -310,6 +322,7 @@ def round_refine(M, u, F, omega, n: int, m: int, inv: FusedInvariantStatics):
         return round_refine_plain(M, u, F, omega, n, m, inv)
     P, N = M.shape[0], n * m
     dev = M.device
+    check_round_shape(n, m)
     build.check_tensor("M", M, (P, N, N), torch.bfloat16, dev)
     build.check_tensor("u", u, (P, N), torch.float32, dev)
     build.check_tensor("F", F, (P,), torch.float32, dev)
@@ -339,6 +352,40 @@ PLAIN = (assoc_terms_plain, build_affinity_plain, clipper_solve_plain,
          round_refine_plain)
 
 
+def check_shape(n: int, m: int, P: int, n_restarts: int, device) -> None:
+    """Raise ValueError unless the kernels take P pairs of n x m at
+    n_restarts restarts on this card: the limits of clipper_solve (its
+    vectors in a block's shared memory) and round_refine (its sides). The
+    other two kernels take more: build_affinity's tables need about
+    (4 n_terms + 1.5) N bytes a block where the solve needs 12.5 N. The
+    fused path calls it before its first launch, so a refused shape
+    launches nothing."""
+    check_solve_shape(n, m, n_restarts, P, device)
+    check_round_shape(n, m)
+
+
+def largest_side(n_restarts: int, device, P: int = 1) -> int:
+    """The largest k such that the kernels take P pairs of k x k on this
+    card (at most ROUND_MAX_SIDE), by bisection on check_shape."""
+    def takes(k):
+        try:
+            check_shape(k, k, P, n_restarts, device)
+        except ValueError:
+            return False
+        return True
+
+    lo, hi = 1, ROUND_MAX_SIDE
+    if takes(hi):
+        return hi
+    while hi - lo > 1:  # takes(lo) and not takes(hi)
+        mid = (lo + hi) // 2
+        if takes(mid):
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
 # ---------------------------------------------------------------------------
 # the whole path
 # ---------------------------------------------------------------------------
@@ -354,9 +401,12 @@ def _fused(f1: SubmapFeatures, f2: SubmapFeatures, inv: FusedInvariantStatics,
     Ddim = f1.descriptors.shape[-1]
     inv = dataclasses.replace(inv, use_ratio=inv.use_ratio and Fdim > 0,
                               use_cosine=inv.use_cosine and Ddim > 0)
+    P = math.prod(batch)
+    if stages is KERNELS and f1.centers.device.type == "cuda":
+        check_shape(n, m, P, params.n_restarts, f1.centers.device)
 
-    def flat(x, tail):
-        return x.reshape((-1,) + tail).to(torch.float32).contiguous()
+    def flat(x, tail):  # (P,) + tail, also where tail holds a 0 (D = 0)
+        return x.reshape((P,) + tail).to(torch.float32).contiguous()
 
     c1, c2 = flat(f1.centers, (n, 3)), flat(f2.centers, (m, 3))
     r1, r2 = flat(f1.ratio_feats, (n, Fdim)), flat(f2.ratio_feats, (m, Fdim))

@@ -651,6 +651,15 @@ cudaError_t encode_map(CUtensorMap* map, const void* M, int P, int N, int bc,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Dynamic shared memory of a block's vectors (u and its bf16 copy, the
+// valid mask, the slice's matvec result, row and column sums): all that
+// the register-load path allocates, and what the ring is placed after.
+template <int R>
+size_t vector_bytes(int N, int n, int m, int C) {
+  return sizeof(float) * ((size_t)2 * R * N + N + (size_t)R * slice_width(N, C) +
+                          (size_t)R * (n + m));
+}
+
 // The bulk-copy ring where every row of M starts 16-byte aligned and two
 // stages fit beside the vectors; register loads, one column a thread,
 // otherwise.
@@ -660,8 +669,7 @@ cudaError_t launch(const void* M, const void* valid, const void* noise, void* u,
                    int warmup, int outer, int inner, float active_eps, int C,
                    cudaStream_t stream) {
   const int Wp = slice_width(N, C);
-  const size_t base = sizeof(float) * ((size_t)2 * R * N + N + (size_t)R * Wp +
-                                       (size_t)R * (n + m));
+  const size_t base = vector_bytes<R>(N, n, m, C);
   const bool aligned = N % 8 == 0 && reinterpret_cast<uintptr_t>(M) % 16 == 0;
   const CUtensorMap none{};
   if (aligned && Wp / 8 <= kThreads) {
@@ -697,7 +705,63 @@ cudaError_t launch(const void* M, const void* valid, const void* noise, void* u,
                                none, stream);
 }
 
+// What a launch of the register-load path needs: the shared memory of a
+// block (static and dynamic), what the card lets a block have, and how
+// many clusters of C such blocks can be resident. Every shape that the
+// bulk-copy ring does not take falls back to this path, so it decides
+// which shapes the kernel takes at all.
+template <int R>
+cudaError_t fits(int N, int n, int m, int C, long long* need, long long* avail,
+                 int* clusters) {
+  auto kernel = clipper_solve_kernel<R, false>;
+  const size_t base = vector_bytes<R>(N, n, m, C);
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  *need = (long long)(base + fa.sharedSizeBytes);
+  *avail = optin;
+  *clusters = 0;
+  if (*need > *avail) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)base);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = base;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
 }  // namespace
+
+// The kernel takes a shape when need <= avail and clusters >= 1 (see
+// fits); the wrapper refuses the others before any launch.
+extern "C" int clipper_solve_fits(int N, int n, int m, int R, int C,
+                                  long long* need, long long* avail,
+                                  int* clusters) {
+  if (C < 1 || C > kMaxCluster) return (int)cudaErrorInvalidValue;
+  switch (R) {
+#define ROMAN_CASE(K) \
+  case K:             \
+    return (int)fits<K>(N, n, m, C, need, avail, clusters);
+    ROMAN_CASE(1) ROMAN_CASE(2) ROMAN_CASE(3) ROMAN_CASE(4)
+    ROMAN_CASE(5) ROMAN_CASE(6) ROMAN_CASE(7) ROMAN_CASE(8)
+#undef ROMAN_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 // C: blocks per pair (the cluster size), 1..8.
 extern "C" int clipper_solve_launch(const void* M, const void* valid,

@@ -2,8 +2,8 @@
 
 The port reads PNG images (``sensor_msgs/CompressedImage`` with format
 png, and ``.png`` files in image directories and zips) and writes its
-plots as RGB PNG without OpenCV or matplotlib, which the machine with the
-card lacks. ``roman_tpu`` decodes with ``cv2.imdecode``; ``decode_png``
+plots as RGB PNG without OpenCV or matplotlib (the machine with the card
+has no matplotlib). ``roman_tpu`` decodes with ``cv2.imdecode``; ``decode_png``
 returns the same pixels for the images it accepts: gray, gray with alpha,
 RGB and RGBA at 8 or 16 bits, not interlaced, with any of the five row
 filters. Channels are in RGB(A) order, 16-bit samples as native uint16.

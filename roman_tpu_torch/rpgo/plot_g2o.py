@@ -9,16 +9,22 @@ colour on a white panel, at equal scale on both axes; the demo's
 (x-y large, x-z below it, z-y beside it) with one colour swatch a robot
 in the first panel's corner for the legend. No text, axes or ticks are
 drawn. Nothing downstream parses the png.
+
+``plot_g2o`` is the library call of the reference: it draws on a
+matplotlib axis (pyplot from ``viz.pyplot``, which names matplotlib where
+it is missing) and equals ``roman_tpu``'s figure pixel for pixel.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from roman_tpu_torch.data.png import write_png
 from roman_tpu_torch.rpgo.g2o_io import parse_g2o, symbol_chr, symbol_index
+from roman_tpu_torch.viz import pyplot
 
 # matplotlib's tab10 colours, in the order roman_tpu assigns them to robots
 _TAB10 = ((31, 119, 180), (255, 127, 14), (44, 160, 44), (214, 39, 40),
@@ -34,6 +40,40 @@ def trajectories(g2o_path: str) -> Dict[str, np.ndarray]:
         by_robot.setdefault(symbol_chr(key), []).append((symbol_index(key), xq[:3]))
     return {r: np.stack([p for _, p in sorted(e, key=lambda e: e[0])])
             for r, e in sorted(by_robot.items())}
+
+
+@dataclasses.dataclass
+class G2OPlotParams:
+    axes: Tuple[int, int] = (0, 1)  # which position components to plot
+    legend: bool = True
+    linewidth: float = 1.0
+
+
+def plot_g2o(
+    g2o_path: str,
+    g2o_symbol_to_name: Optional[Dict[str, str]] = None,
+    g2o_symbol_to_color: Optional[Dict[str, str]] = None,
+    ax=None,
+    params: G2OPlotParams = G2OPlotParams(),
+):
+    """Each robot's vertex positions as a line on a matplotlib axis (a new
+    figure's when ax is None), labelled by g2o_symbol_to_name, in
+    g2o_symbol_to_color's colours (tab10 by robot letter by default), at
+    equal scale. Returns the axis."""
+    if ax is None:
+        plt = pyplot("plot_g2o")
+        _, ax = plt.subplots()
+    colors = g2o_symbol_to_color or {
+        r: tuple(c / 255 for c in rgb) for r, rgb in DEFAULT_TRAJECTORY_COLORS.items()}
+    a0, a1 = params.axes
+    for robot, pos in trajectories(g2o_path).items():
+        label = (g2o_symbol_to_name or {}).get(robot, robot)
+        ax.plot(pos[:, a0], pos[:, a1], label=label, color=colors.get(robot),
+                linewidth=params.linewidth)
+    if params.legend:
+        ax.legend()
+    ax.set_aspect("equal")
+    return ax
 
 
 def _draw_polyline(img: np.ndarray, px: np.ndarray, color) -> None:

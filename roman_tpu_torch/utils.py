@@ -36,7 +36,7 @@ def combinedicts_recursive(d1: dict, d2: dict) -> dict:
 def require(module: str, what: str):
     """Import an optional package (cv2, matplotlib) where only it does the
     work, or raise an ImportError that names it: the machine with the card
-    has neither, and nothing falls back quietly."""
+    has no matplotlib, and nothing falls back quietly."""
     try:
         return importlib.import_module(module)
     except ImportError as e:

@@ -8,7 +8,7 @@ offscreen; here matplotlib 3D serves that role (no GL dependency).
 
 matplotlib and OpenCV are imported inside the functions that draw or
 write video, so the module imports where they are missing (the machine
-with the card has neither); a function that needs one raises an
+with the card has no matplotlib); a function that needs one raises an
 ImportError naming it there.
 """
 
@@ -21,7 +21,7 @@ import numpy as np
 from roman_tpu_torch.utils import require
 
 
-def _pyplot(what: str):
+def pyplot(what: str):
     """matplotlib.pyplot on the offscreen Agg backend."""
     require("matplotlib", what).use("Agg")
     return require("matplotlib.pyplot", what)
@@ -68,7 +68,7 @@ def plot_map_3d(segments, ax=None, color_by_id: bool = True, trajectory=None,
     """3D scatter of the object map + trajectory (open3d third-person view
     equivalent, viz.py:86-276; time_range/show_labels/show_origin mirror
     the reference visualize_3d flags, demo/o3d_viz.py:17-27)."""
-    plt = _pyplot("plot_map_3d")
+    plt = pyplot("plot_map_3d")
 
     if ax is None:
         fig = plt.figure(figsize=(8, 8))
@@ -108,7 +108,7 @@ def plot_map_3d(segments, ax=None, color_by_id: bool = True, trajectory=None,
 def plot_registration_3d(submap1, submap2, associations: np.ndarray, ax=None,
                          z_lift: float = 5.0):
     """Two submaps + association lines (align_viz.py equivalent)."""
-    plt = _pyplot("plot_registration_3d")
+    plt = pyplot("plot_registration_3d")
 
     if ax is None:
         fig = plt.figure(figsize=(8, 8))
@@ -127,7 +127,7 @@ def plot_registration_3d(submap1, submap2, associations: np.ndarray, ax=None,
 
 def plot_correspondences(map1, map2, correspondences: np.ndarray, ax=None):
     """2D correspondence plot (reference roman/utils.py:21-48)."""
-    plt = _pyplot("plot_correspondences")
+    plt = pyplot("plot_correspondences")
 
     if ax is None:
         _, ax = plt.subplots()
@@ -157,7 +157,7 @@ def render_map_frame(segments, trajectory, pose, t: Optional[float] = None,
     t is given); trajectory (T, 4, 4) poses up to now; pose (4, 4) current.
     Returns an RGB uint8 image.
     """
-    plt = _pyplot("render_map_frame")
+    plt = pyplot("render_map_frame")
 
     fig = plt.figure(figsize=figsize, dpi=dpi)
     ax = fig.add_subplot(projection="3d")

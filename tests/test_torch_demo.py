@@ -362,3 +362,177 @@ def test_viz_matches_roman_tpu_and_names_what_it_lacks(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     with pytest.raises(ImportError, match="matplotlib"):
         t_viz.render_map_frame([], traj[:1], traj[0])
+
+
+# ---------------------------------------------------------------------------
+# the demo's other CLIs, on the sim demo's tree
+# ---------------------------------------------------------------------------
+
+def _edges(path):
+    return [ln for ln in path.read_text().splitlines() if ln.startswith("EDGE")]
+
+
+def test_loop_closures_cli_writes_the_demo_alignment_edges(sim_demo, tmp_path, capsys):
+    """python -m roman_tpu_torch.demo.loop_closures --cpu on the demo's two
+    maps with its params: the EDGE lines of the demo's alignment stage,
+    and demo/loop_closures.py's line."""
+    from roman_tpu_torch.demo import loop_closures
+
+    params, out, _ = sim_demo
+    lc = tmp_path / "lc"
+    loop_closures.main([str(out / "map" / "robot0.pkl"), str(out / "map" / "robot1.pkl"),
+                        "-o", str(lc), "-p", str(params / "submap_align.yaml"), "--cpu"])
+    got = _edges(lc / "align.g2o")
+    assert got and got == _edges(out / "align" / "robot0_robot1" / "align.g2o")
+    assert capsys.readouterr().out.splitlines()[-1] == \
+        f"{len(got)} loop closures written to {lc / 'align.g2o'}"
+
+
+def test_merge_demo_output_is_read_by_roman_tpu(sim_demo, tmp_path):
+    """The two robots' maps merged as chunks: roman_tpu reads the pickle,
+    with roman_tpu's own merge's segment ids, centers, points and times."""
+    from roman_tpu.map.roman_map import RomanMap as JRomanMap
+    from roman_tpu_torch.demo import merge_demo_output
+
+    _, out, _ = sim_demo
+    chunks = [str(out / "map" / f"{r}.pkl") for r in SIM_RUNS]
+    merged = tmp_path / "merged.pkl"
+    got = merge_demo_output.main(chunks + ["-o", str(merged)])
+    back = JRomanMap.from_pickle(str(merged))
+    ref = JRomanMap.concatenate([JRomanMap.from_pickle(p) for p in chunks])
+    assert type(back) is JRomanMap and len(back.segments) == len(got.segments) > 0
+    assert [s.id for s in back.segments] == [s.id for s in ref.segments]
+    assert len({s.id for s in back.segments}) == len(back.segments)
+    for a, b in zip(back.segments, ref.segments):
+        np.testing.assert_array_equal(a.center, b.center)
+        np.testing.assert_array_equal(a.points, b.points)
+    np.testing.assert_array_equal(back.times, ref.times)
+    np.testing.assert_array_equal(back.trajectory, ref.trajectory)
+
+
+def _run_roman_tpu_cli(script, argv, monkeypatch, entry=None):
+    """roman_tpu's demo/<script> in this process, as `python demo/<script>
+    argv` runs it (`entry`: a function its module defines instead of its
+    __main__ block)."""
+    import runpy
+
+    import matplotlib.pyplot as plt
+
+    monkeypatch.setattr(sys, "argv", [script] + argv)
+    path = os.path.join(ROOT, "demo", script)
+    try:
+        if entry:
+            runpy.run_path(path, run_name="roman_tpu_demo")[entry]()
+        else:
+            runpy.run_path(path, run_name="__main__")
+    except SystemExit as e:
+        assert not e.code
+    plt.close("all")
+
+
+def _same_pngs(a, b):
+    """Every PNG under directory or file `a` equals its namesake under `b`,
+    pixel for pixel."""
+    files = sorted(p.name for p in a.iterdir()) if a.is_dir() else [None]
+    assert files
+    import cv2
+
+    for f in files:
+        pa, pb = (a / f, b / f) if f else (a, b)
+        np.testing.assert_array_equal(cv2.imread(str(pa), cv2.IMREAD_UNCHANGED),
+                                      cv2.imread(str(pb), cv2.IMREAD_UNCHANGED))
+
+
+def test_map_viz_matches_roman_tpu(sim_demo, tmp_path, monkeypatch):
+    from roman_tpu_torch.demo import map_viz, o3d_viz
+
+    _, out, _ = sim_demo
+    pkl = str(out / "map" / "robot1.pkl")
+    flags = ["--no-orig", "-t", "5", "20"]
+    _run_roman_tpu_cli("map_viz.py", [pkl, "-o", str(tmp_path / "ref.png")] + flags,
+                       monkeypatch)
+    assert map_viz.main([pkl, "-o", str(tmp_path / "got.png")] + flags) == \
+        str(tmp_path / "got.png")
+    _same_pngs(tmp_path / "got.png", tmp_path / "ref.png")
+    assert o3d_viz.main is map_viz.main
+
+
+def test_submap_viz_matches_roman_tpu(sim_demo, tmp_path, monkeypatch):
+    """-t: every run's sheet, all runs together and each robot pair's
+    matrix sheet (the titles name the output directory, so both packages
+    write into the same one in turn)."""
+    import shutil
+
+    from roman_tpu_torch.demo import submap_viz
+
+    params, out, _ = sim_demo
+    viz = out / "submap_viz"
+    argv = ["-p", str(params), "-o", str(out), "-t"]
+    _run_roman_tpu_cli("submap_viz.py", argv, monkeypatch, entry="main")
+    shutil.move(viz, tmp_path / "ref")
+    written = submap_viz.main(argv)
+    assert sorted(os.path.basename(p) for p in written) == sorted(os.listdir(tmp_path / "ref"))
+    assert "all_runs.png" in os.listdir(viz) and "robot0_robot1_matrix.png" in os.listdir(viz)
+    _same_pngs(viz, tmp_path / "ref")
+    shutil.rmtree(viz)
+
+
+def test_association_vid_matches_roman_tpu(sim_demo, tmp_path, monkeypatch):
+    """The association figures of every loop closure, and the camera-frame
+    video's frames (caught before they are encoded)."""
+    from roman_tpu import viz as j_viz
+    from roman_tpu_torch.align import align_viz
+    from roman_tpu_torch.demo import association_vid
+
+    _, out, _ = sim_demo
+    pkl = str(out / "align" / "robot0_robot1" / "align.pkl")
+    _run_roman_tpu_cli("association_vid.py", [pkl, "-o", str(tmp_path / "ref")], monkeypatch)
+    written = association_vid.main([pkl, "-o", str(tmp_path / "got")])
+    assert len(written) == len(os.listdir(tmp_path / "ref")) > 0
+    _same_pngs(tmp_path / "got", tmp_path / "ref")
+
+    frames = {}
+
+    def catch(key):
+        def write_video(f, path, fps=6.0):
+            frames[key] = f
+            return path
+        return write_video
+
+    monkeypatch.setattr(j_viz, "write_video", catch("ref"))
+    monkeypatch.setattr(align_viz, "write_video", catch("got"))
+    argv = [pkl, "--camera-video", "--camera-fps", "2"]
+    _run_roman_tpu_cli("association_vid.py", argv + ["-o", str(tmp_path / "ref_cam")],
+                       monkeypatch)
+    association_vid.main(argv + ["-o", str(tmp_path / "got_cam")])
+    assert len(frames["got"]) == len(frames["ref"]) > 1
+    for a, b in zip(frames["got"], frames["ref"]):
+        np.testing.assert_array_equal(a, b)
+    assert any((a != a[0, 0]).any() for a in frames["got"])  # outlines drawn
+
+
+@pytest.mark.parametrize("cli,argv,package", [
+    ("map_viz", ["{map}"], "matplotlib"),
+    ("o3d_viz", ["{map}", "--show-text"], "matplotlib"),
+    ("submap_viz", ["-p", "{params}", "-o", "{out}", "-t"], "matplotlib"),
+    ("association_vid", ["{align}", "-o", "{out}/assoc", "--video"], "cv2"),
+    ("association_vid", ["{align}", "-o", "{out}/assoc"], "matplotlib"),
+    ("association_vid", ["{align}", "-o", "{out}/cam", "--camera-video"], "cv2"),
+])
+def test_viz_clis_without_cv2_and_matplotlib_name_the_package_and_write_nothing(
+        sim_demo, tmp_path, cli, argv, package):
+    """As on the machine with the card: each viz CLI raises an ImportError
+    naming what it needs, before it writes anything."""
+    import importlib
+    import shutil
+
+    params, out, _ = sim_demo
+    shutil.copytree(out / "map", tmp_path / "map")
+    fill = dict(map=str(tmp_path / "map" / "robot0.pkl"), params=str(params),
+                out=str(tmp_path), align=str(out / "align" / "robot0_robot1" / "align.pkl"))
+    before = sorted(p for p in tmp_path.rglob("*"))
+    with without_cv2_and_matplotlib():
+        with pytest.raises(ImportError, match=repr(package)):
+            importlib.import_module(f"roman_tpu_torch.demo.{cli}").main(
+                [a.format(**fill) for a in argv])
+    assert sorted(p for p in tmp_path.rglob("*")) == before

@@ -306,3 +306,55 @@ def test_wrappers_check_their_inputs(failing_launch):
     with pytest.raises(ValueError, match="n_restarts"):
         clipper_solve(M, _meta(P, N), n, m, ClipperSolveParams(n_restarts=9))
     assert failing_launch == []
+
+
+def test_per_pair_entry_points_without_device_raise_on_a_host_without_a_card(
+        no_card, tmp_path):
+    """The per-pair classes and the loop_closures CLI run on cuda unless
+    asked for the CPU; the CLI raises before it writes anything."""
+    from roman_tpu_torch.align.dist_reg_with_pruning import DistRegWithPruning
+    from roman_tpu_torch.align.object_registration import (ObjectRegistration,
+                                                           segments_to_features)
+    from roman_tpu_torch.align.ransac_reg import RansacReg
+    from roman_tpu_torch.align.roman_registration import ROMANParams, ROMANRegistration
+    from roman_tpu_torch.demo import loop_closures
+
+    for make in (lambda: ObjectRegistration(), lambda: ROMANRegistration(ROMANParams()),
+                 lambda: DistRegWithPruning(0.4, 0.6), lambda: RansacReg(),
+                 lambda: segments_to_features([], RegistrationConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop_closures.main(["a.pkl", "b.pkl", "-o", str(out)])
+    assert not out.exists()
+    for reg in (ObjectRegistration(device="cpu"),
+                ROMANRegistration(ROMANParams(), device="cpu"),
+                DistRegWithPruning(0.4, 0.6, device="cpu"), RansacReg(device="cpu")):
+        assert reg.device.type == "cpu"
+
+
+def test_kernel_limits_name_the_kernel_and_bound_the_largest_side(monkeypatch):
+    """check_shape refuses a shape by the kernel whose limit it passes
+    (round_refine's sides; clipper_solve's shared memory, here answered as
+    an H100 answers it for the register-load path: 3N + N/8 + n + m floats
+    and 3,264 static bytes against 232,448), and largest_side bisects to
+    the last square that passes."""
+    from roman_tpu_torch.align import clipper_solve as cs_mod
+
+    def fits(N, n, m, R, C, device):
+        Wp = (-(-N // C) + 7) // 8 * 8
+        need = 4 * (2 * R * N + N + R * Wp + R * (n + m)) + 3264
+        return need, 232448, int(need <= 232448)
+
+    monkeypatch.setattr(cs_mod, "solve_fits", fits)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    dev = torch.device("cuda")
+    tfr.check_shape(135, 135, 1, 1, dev)
+    with pytest.raises(ValueError, match=r"clipper_solve .*\(136 x 136\)"):
+        tfr.check_shape(136, 136, 1, 1, dev)
+    with pytest.raises(ValueError, match="round_refine takes n and m up to 256"):
+        tfr.check_shape(1, 257, 1, 1, dev)
+    assert tfr.largest_side(1, dev) == 135
+    assert tfr.largest_side(2, dev) < 135  # more restart rows, less room
