@@ -106,10 +106,23 @@ N = 1600 candidate associations each), and then:
    all four kernels launched; the viz CLIs as
    processes, which without matplotlib (or cv2) must exit non-zero with an
    ImportError naming it and write nothing, and with it write their files;
-15. prints one JSON line of per-kernel numbers (launches on the main path,
-   on phases 10 and 13's demo runs, and on phase 14's classes and CLI), the
-   card's name and power limit again, and last {"ok": true, "device":
-   {...}}. No kernel of the port lies on the mapping or perception paths
+15. splits the 506-pair grid over a mesh (parallel.mesh): get_mesh(), the
+   visible cards, at 32 pairs a card, and four virtual shards on cuda:0 at
+   chunk 128 (each launch 32 pairs, as phase 4's chunk 32) equal to phase
+   4's chunk-32 grid byte for byte; four virtual shards at chunk 32
+   (launches of 8 pairs) with equal selections, counts and LC decisions
+   and T_align within 1e-4; pairs/s of each (a record: virtual shards share
+   the card); then dryrun_multichip(1) and dryrun_multichip(4,
+   device="cuda:0") (the grid at flagship shapes, a BatchMapper frame a
+   robot, a GN step with its edges split), every launch count set to 0
+   just before and read just after (all four kernels must launch); and
+   the port's native referee (g++, into build/): the serial C++ CLIPPER
+   solve on the first 8 bench pairs, its pairs/s and its LC agreement
+   with the kernels (a record);
+16. prints one JSON line of per-kernel numbers (launches on the main path,
+   on phases 10 and 13's demo runs, on phase 14's classes and CLI, and on
+   phase 15's dryrun_multichip), the card's name and power limit again,
+   and last {"ok": true, "device": {...}}. No kernel of the port lies on the mapping or perception paths
    (phases 9 and 11-12 launch none).
 
 Every check raises on failure, so the script then exits non-zero and
@@ -700,7 +713,7 @@ def run_grid(feats, auxs, runs, cfg, repeats=3):
     require(np.isfinite(res_main.T_align[res_main.ok]).all(),
             "a registered pair has a non-finite transform")
     return dict(pairs=P, pairs_per_s=rates[KERNEL_PAIRS][0], counts=counts,
-                agreement=agree)
+                agreement=agree, result=res_main)
 
 
 # ---------------------------------------------------------------------------
@@ -2060,6 +2073,110 @@ def run_per_pair(submaps, cfg, grid_pairs_per_s, workdir, demo, device):
     return dict(launches=counts, cli_launches=lc_counts, ms=ms, largest=k)
 
 # ---------------------------------------------------------------------------
+# phase 15: the pair grid over a mesh, dryrun_multichip, the native referee
+# ---------------------------------------------------------------------------
+
+NATIVE_PAIRS = 8
+RESULT_FIELDS = ("sel", "count", "T_align", "ok", "score", "converged")
+
+
+def run_mesh(feats, auxs, cfg, grid):
+    """Phase 15: the 506-pair grid split over get_mesh() (the visible
+    cards, at 32 pairs a card) and over four virtual shards on cuda:0 at
+    chunks 128 and 32, each against phase 4's unsharded grid at chunk 32;
+    dryrun_multichip on one card and on four virtual shards, with every
+    launch count set to 0 just before and read just after; the port's
+    native referee on the first NATIVE_PAIRS bench pairs."""
+    import torch
+
+    from roman_tpu_torch import native
+    from roman_tpu_torch.align.submap_align import PairGridRegistrar
+    from roman_tpu_torch.parallel.mesh import get_mesh
+    from roman_tpu_torch.parallel.multichip import dryrun_multichip
+
+    mesh = get_mesh()
+    print(f"mesh: torch.cuda.device_count() {torch.cuda.device_count()}, "
+          f"get_mesh() {mesh}", flush=True)
+    pair_i, pair_j = full_grid(feats)
+    P = len(pair_i)
+    ids = [a["seg_ids"] for a in auxs]
+    ref = grid["result"]
+    virtual = get_mesh(4, device="cuda:0")
+    # chunk 128 over four shards gives each launch the 32 pairs (and so the
+    # clipper_solve cluster size) of the unsharded chunk 32: bytes equal;
+    # chunk 32 gives launches of 8 pairs, another cluster size
+    layouts = ((f"get_mesh() ({mesh.size} card(s)), chunk {KERNEL_PAIRS * mesh.size}",
+                mesh, KERNEL_PAIRS * mesh.size, True),
+               ("4 virtual shards on cuda:0, chunk 128", virtual, 128, True),
+               (f"4 virtual shards on cuda:0, chunk {KERNEL_PAIRS}", virtual,
+                KERNEL_PAIRS, False))
+    rates = {}
+    for name, m, chunk, exact in layouts:
+        reg = PairGridRegistrar(cfg, chunk_size=chunk, mesh=m)
+        res = reg(feats[0], feats[1], ids[0], ids[1], pair_i, pair_j)  # warmup
+        best = np.inf
+        for _ in range(3):
+            reset_launches()
+            t0 = time.perf_counter()
+            res = reg(feats[0], feats[1], ids[0], ids[1], pair_i, pair_j)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        counts = read_launches()
+        rates[name] = P / best
+        same = {f: bool(np.array_equal(getattr(res, f), getattr(ref, f)))
+                for f in RESULT_FIELDS}
+        T_err = float(np.max(np.abs(res.T_align - ref.T_align)))
+        lc = lambda r: r.ok & (r.count >= 4)  # noqa: E731
+        lc_agree = float(np.mean(lc(res) == lc(ref)))
+        print(f"mesh grid, {name}: {P / best:.1f} pairs/s (shards share the card "
+              f"when virtual; a record), launches {counts}, rescued {reg.rescued}; "
+              f"equal to phase 4's chunk {KERNEL_PAIRS}: {same}, T_align within "
+              f"{T_err:.3e}, LC agreement {lc_agree}", flush=True)
+        if exact:
+            require(all(same.values()), f"{name}: not byte-equal to the unsharded grid")
+        else:
+            require(same["sel"] and same["count"] and T_err <= 1e-4 and lc_agree == 1.0,
+                    f"{name}: differs from the unsharded grid")
+        require(all(v > 0 for v in counts.values()), f"{name}: a kernel was not launched")
+
+    t0 = time.perf_counter()
+    reset_launches()
+    dry = [dryrun_multichip(1), dryrun_multichip(4, device="cuda:0")]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    print(f"dryrun_multichip(1) and (4, cuda:0): {time.perf_counter() - t0:.1f} s, "
+          f"launches {counts}; grid bytes equal to unsharded "
+          f"{[d['grid']['same_bytes'] for d in dry]}, GN step within "
+          f"{[d['pgo']['max_abs_err'] for d in dry]}", flush=True)
+    require(all(v > 0 for v in counts.values()),
+            f"a kernel was not launched by dryrun_multichip: {counts}")
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    built = time.perf_counter() - t0
+    args = []
+    for i, j in zip(pair_i[:NATIVE_PAIRS], pair_j[:NATIVE_PAIRS]):
+        sides = []
+        for f, k in ((feats[0], i), (feats[1], j)):
+            v = f.valid[k].cpu().numpy()
+            sides.append([x[k].cpu().numpy()[v] for x in
+                          (f.centers, f.ratio_feats, f.descriptors)])
+        args.append(sides[0] + sides[1])
+    knobs = (cfg.sigma, cfg.epsilon, cfg.mindist, cfg.cos_min, cfg.cos_max)
+    t0 = time.perf_counter()
+    sels = [native.clipper_ref_solve_native(*a, *knobs) for a in args]
+    serial = NATIVE_PAIRS / (time.perf_counter() - t0)
+    lc_ref = np.array([len(s) >= 4 for s in sels])
+    lc_eng = ref.ok[:NATIVE_PAIRS] & (ref.count[:NATIVE_PAIRS] >= 4)
+    print(f"native referee: built with g++ {' '.join(native.CXX_FLAGS)} in {built:.1f} s "
+          f"({os.path.relpath(native.library_path())}); serial C++ CLIPPER "
+          f"{serial:.3f} pairs/s on the first {NATIVE_PAIRS} bench pairs (the grid: "
+          f"{grid['pairs_per_s']:.1f}); associations {[len(s) for s in sels]}, LC "
+          f"agreement with the kernels {float(np.mean(lc_ref == lc_eng))} (a record)",
+          flush=True)
+    return dict(rates=rates, launches=counts, native_pairs_per_s=serial)
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2112,6 +2229,9 @@ def main() -> int:
         t0 = time.perf_counter()
         per_pair = run_per_pair(submaps, cfg, grid["pairs_per_s"], main_dir, demo_sim, dev)
         print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mesh = run_mesh(feats, auxs, cfg, grid)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
 
     sources = {"clipper_solve": "roman_tpu_torch/csrc/clipper_solve.cu"}
     replaces = {"clipper_solve": "roman_tpu/align/clipper_pallas.py:50"}
@@ -2123,6 +2243,7 @@ def main() -> int:
         bag_demo_launches=demo_bag["launches"][r["name"]],
         per_pair_launches=per_pair["launches"][r["name"]],
         loop_closures_launches=per_pair["cli_launches"][r["name"]],
+        mesh_launches=mesh["launches"][r["name"]],
         max_abs_err=r["max_abs_err"],
         ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound"][0],

@@ -212,14 +212,13 @@ def register_clipper_rescued(f1: SubmapFeatures, f2: SubmapFeatures,
     return splice_rescued(res, res2, bad)
 
 
-def register_clipper(f1: SubmapFeatures, f2: SubmapFeatures,
-                     cfg: RegistrationConfig,
-                     assoc_mask: Optional[torch.Tensor] = None) -> RegistrationResult:
-    """ROMAN-family registration, batched over the leading dims of f1/f2.
-
-    Geometric-mean fusion runs the fused path; the other fusions run the
-    plain affinity, then the CLIPPER solve, then the plain rounding and
-    refinement."""
+def solve_clipper(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConfig,
+                  assoc_mask: Optional[torch.Tensor] = None):
+    """The device half of register_clipper: (sel, count, u, F) of every
+    pair. Geometric-mean fusion runs the fused path; the other fusions run
+    the plain affinity, then the CLIPPER solve, then the plain rounding and
+    refinement. On the card it launches the kernels and waits for none of
+    them."""
     if cfg.fusion == "geometric_mean":
         gravity, use_ratio, use_cosine = cfg.solve_flags
         inv = FusedInvariantStatics(
@@ -231,25 +230,36 @@ def register_clipper(f1: SubmapFeatures, f2: SubmapFeatures,
             use_cosine=use_cosine and f1.descriptors.shape[-1] > 0,
             max_clique=cfg.max_clique,
         )
-        sel, count, u, F = fused_register(f1, f2, inv, cfg.solver,
-                                          assoc_mask=assoc_mask)
-    else:
-        p = cfg.invariant_params(f1.ratio_feats.shape[-1],
-                                 device=f1.centers.device)
-        M4, _ = invariants.affinity(f1, f2, p)
-        valid = f1.valid[..., :, None] & f2.valid[..., None, :]
-        if assoc_mask is not None:
-            valid = valid & assoc_mask
-            keep = (assoc_mask[..., :, :, None, None]
-                    & assoc_mask[..., None, None, :, :])
-            M4 = torch.where(keep, M4, 0.0)
-        max_clique = min(cfg.max_clique, f1.capacity, f2.capacity)
-        sel, count, u, F = clipper_mod.solve_and_round(M4, valid, max_clique,
-                                                       cfg.solver)
+        return fused_register(f1, f2, inv, cfg.solver, assoc_mask=assoc_mask)
+    p = cfg.invariant_params(f1.ratio_feats.shape[-1], device=f1.centers.device)
+    M4, _ = invariants.affinity(f1, f2, p)
+    valid = f1.valid[..., :, None] & f2.valid[..., None, :]
+    if assoc_mask is not None:
+        valid = valid & assoc_mask
+        keep = (assoc_mask[..., :, :, None, None]
+                & assoc_mask[..., None, None, :, :])
+        M4 = torch.where(keep, M4, 0.0)
+    max_clique = min(cfg.max_clique, f1.capacity, f2.capacity)
+    return clipper_mod.solve_and_round(M4, valid, max_clique, cfg.solver)
+
+
+def finish_clipper(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConfig,
+                   sel, count, u, F) -> RegistrationResult:
+    """The other half of register_clipper, on solve_clipper's outputs: the
+    Arun T_align of the selection (on the card its SVD waits for the
+    device), ok and converged."""
     T = _t_align_from_selection(f1, f2, sel)
     return RegistrationResult(sel=sel, count=count, T_align=T,
                               ok=count >= cfg.dim, u=u, score=F,
                               converged=_homotopy_converged(u, cfg.solver))
+
+
+def register_clipper(f1: SubmapFeatures, f2: SubmapFeatures,
+                     cfg: RegistrationConfig,
+                     assoc_mask: Optional[torch.Tensor] = None) -> RegistrationResult:
+    """ROMAN-family registration, batched over the leading dims of f1/f2:
+    solve_clipper, then finish_clipper."""
+    return finish_clipper(f1, f2, cfg, *solve_clipper(f1, f2, cfg, assoc_mask))
 
 
 def get_MCA(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConfig):
@@ -292,16 +302,12 @@ def mno_clipper(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConfig,
     return solutions
 
 
-def register_clipper_prune(f1: SubmapFeatures, f2: SubmapFeatures,
-                           cfg: RegistrationConfig,
-                           pca_attrs1=None, volume1=None,
-                           pca_attrs2=None, volume2=None,
-                           descriptors1=None, descriptors2=None) -> RegistrationResult:
-    """clipper+prune baseline (dist_reg_with_pruning.py): Euclidean-distance
-    CLIPPER over candidates pruned by descriptor cosine < cos_min and
-    shape-attribute min/max ratio < epsilon_shape; a result whose roll or
-    pitch exceeds roll_pitch_thresh is marked failed (the reference's
-    GravityConstraintError)."""
+def prune_mask(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConfig,
+               pca_attrs1=None, volume1=None, pca_attrs2=None, volume2=None,
+               descriptors1=None, descriptors2=None) -> torch.Tensor:
+    """clipper+prune's candidate associations (..., n, m): valid pairs whose
+    descriptor cosine is >= cos_min and whose shape attributes' min/max
+    ratios are all >= epsilon_shape."""
     assoc = f1.valid[..., :, None] & f2.valid[..., None, :]
     if descriptors1 is not None and descriptors2 is not None:
         cos = torch.einsum("...nd,...md->...nm", descriptors1, descriptors2)
@@ -313,11 +319,28 @@ def register_clipper_prune(f1: SubmapFeatures, f2: SubmapFeatures,
         b = torch.abs(sa2[..., None, :, :])
         rho = torch.minimum(a, b) / torch.clamp(torch.maximum(a, b), min=1e-9)
         assoc = assoc & torch.all(rho >= cfg.epsilon_shape, dim=-1)
-    res = register_clipper(f1, f2, cfg, assoc_mask=assoc)
+    return assoc
+
+
+def gravity_check(res: RegistrationResult, cfg: RegistrationConfig) -> RegistrationResult:
+    """res with ok False where the result's roll or pitch exceeds
+    roll_pitch_thresh (the reference's GravityConstraintError)."""
     rpy = T_to_xyzrpy(res.T_align)[..., 3:]
     grav_ok = ((torch.abs(rpy[..., 0]) < cfg.roll_pitch_thresh)
                & (torch.abs(rpy[..., 1]) < cfg.roll_pitch_thresh))
     return dataclasses.replace(res, ok=res.ok & grav_ok)
+
+
+def register_clipper_prune(f1: SubmapFeatures, f2: SubmapFeatures,
+                           cfg: RegistrationConfig,
+                           pca_attrs1=None, volume1=None,
+                           pca_attrs2=None, volume2=None,
+                           descriptors1=None, descriptors2=None) -> RegistrationResult:
+    """clipper+prune baseline (dist_reg_with_pruning.py): Euclidean-distance
+    CLIPPER over the candidates of prune_mask, then gravity_check."""
+    assoc = prune_mask(f1, f2, cfg, pca_attrs1, volume1, pca_attrs2, volume2,
+                       descriptors1, descriptors2)
+    return gravity_check(register_clipper(f1, f2, cfg, assoc_mask=assoc), cfg)
 
 
 RANSAC_CHUNK = 128  # hypotheses scored at once (roman_tpu registration.py:445)

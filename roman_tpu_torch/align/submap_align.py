@@ -33,7 +33,6 @@ from roman_tpu_torch.align.invariants import SubmapFeatures
 from roman_tpu_torch.align.registration import RegistrationConfig, RegistrationResult
 from roman_tpu_torch.align.results import SubmapAlignResults, save_submap_align_results
 from roman_tpu_torch.data.pose_data import PoseData
-from roman_tpu_torch.device import resolve_device
 from roman_tpu_torch.map.roman_map import (
     RomanMap,
     Submap,
@@ -43,6 +42,8 @@ from roman_tpu_torch.map.roman_map import (
     submaps_to_features,
 )
 from roman_tpu_torch.ops import se3_np
+from roman_tpu_torch.parallel.mesh import (Mesh, home_device, pad_to_multiple,
+                                             pair_slices, replicated)
 from roman_tpu_torch.params.submap_align_params import (
     SubmapAlignInputOutput,
     SubmapAlignParams,
@@ -60,24 +61,41 @@ class PairGridRegistrar:
     ``register_clipper_prune`` for clipper+prune (the same four launches,
     with a pruned association mask), ``register_ransac`` for ransac (torch
     code; its draws are made once per call for the whole pair list from
-    `seed`). For the CLIPPER methods, pairs whose homotopy did not converge
-    are then re-solved once, through the same path, at
+    `seed`, and each pair takes its own row wherever it runs). For the
+    CLIPPER methods, pairs whose homotopy did not converge are then
+    re-solved once, unsharded on the first device, at
     ``registration.rescue_solver`` budget and spliced back; ransac has no
     homotopy and no rescue. chunk_size bounds the device memory of a
     chunk: its (chunk, N, N) bf16 affinity is 5.12 MB per pair at
     capacity 40.
+
+    With a mesh (``parallel.mesh``), the chunk is rounded up to a multiple
+    of the mesh size, the features and id tables are replicated on every
+    mesh device, and each chunk's pairs are split across the devices
+    (``pair_slices``); the results stay on the devices until every chunk
+    is launched, then come home once a device. Without one, everything
+    runs on `device` (default cuda).
     """
 
     def __init__(self, cfg: RegistrationConfig, single_robot_lc: bool = False,
-                 chunk_size: int = 64, device=None):
+                 chunk_size: int = 64, mesh: Optional[Mesh] = None, device=None):
         self.cfg = cfg
         self.single_robot_lc = single_robot_lc
+        self.device = home_device(mesh, device)
+        self.mesh = mesh if mesh is not None else Mesh((self.device,))
+        if mesh is not None:
+            chunk_size = pad_to_multiple(max(chunk_size, mesh.size), mesh.size)
         self.chunk_size = chunk_size
-        self.device = resolve_device(device)
         self.rescued = 0  # pairs the last call re-solved at rescue budget
 
-    def _register(self, f1: SubmapFeatures, f2: SubmapFeatures, ids1, ids2,
-                  cfg: RegistrationConfig, draws=None) -> RegistrationResult:
+    def _launch(self, f1: SubmapFeatures, f2: SubmapFeatures, ids1, ids2,
+                cfg: RegistrationConfig, draws=None):
+        """Launch the registration of a batch of pairs; returns a function
+        that finishes it into a RegistrationResult. For the CLIPPER methods
+        the launch is solve_clipper (the kernels, no wait) and the finish
+        is Arun's T_align, whose SVD waits for the device: so a chunk
+        launches all of its shards before it finishes any, and the devices
+        of a mesh work at once. Ransac runs whole in the launch."""
         if self.single_robot_lc:
             # remove segments whose ids appear in both submaps
             # (submap_align.py:108-115)
@@ -90,10 +108,11 @@ class PairGridRegistrar:
             f1 = dataclasses.replace(f1, valid=f1.valid & ~shared1)
             f2 = dataclasses.replace(f2, valid=f2.valid & ~shared2)
         if cfg.method == "ransac":
-            return reg.register_ransac(f1, f2, cfg, draws)
+            res = reg.register_ransac(f1, f2, cfg, draws)
+            return lambda: res
         if cfg.method == "clipper+prune":
             F1, F2 = f1.ratio_feats.shape[-1], f2.ratio_feats.shape[-1]
-            return reg.register_clipper_prune(
+            mask = reg.prune_mask(
                 f1, f2, cfg,
                 pca_attrs1=f1.ratio_feats[..., :3] if F1 >= 3 else None,
                 volume1=f1.ratio_feats[..., 3] if F1 >= 4 else None,
@@ -101,30 +120,63 @@ class PairGridRegistrar:
                 volume2=f2.ratio_feats[..., 3] if F2 >= 4 else None,
                 descriptors1=f1.descriptors if f1.descriptors.shape[-1] else None,
                 descriptors2=f2.descriptors if f2.descriptors.shape[-1] else None)
-        return reg.register_clipper(f1, f2, cfg)
+            out = reg.solve_clipper(f1, f2, cfg, mask)
+            return lambda: reg.gravity_check(reg.finish_clipper(f1, f2, cfg, *out), cfg)
+        out = reg.solve_clipper(f1, f2, cfg)
+        return lambda: reg.finish_clipper(f1, f2, cfg, *out)
 
-    def _run(self, feats1, feats2, ids1_all, ids2_all, pair_i, pair_j,
-             cfg: RegistrationConfig, times=None, draws=None) -> RegistrationResult:
-        parts = []
-        C = self.chunk_size
-        for s in range(0, len(pair_i), C):
+    def _run(self, mesh: Mesh, data, pair_i, pair_j, cfg: RegistrationConfig,
+             times=None, draws=None) -> RegistrationResult:
+        """Register pairs (pair_i[p], pair_j[p]) chunk by chunk, each
+        chunk's pairs split across the mesh's shards; data[k] holds
+        (feats1, feats2, ids1, ids2) on shard k's device. Returns the
+        result on the CPU, in pair order, with u dropped."""
+        P, C, n = len(pair_i), self.chunk_size, mesh.size
+        chunks = [np.arange(s, min(s + C, P)) for s in range(0, P, C)]
+        pieces = [[rows[sl] for sl in pair_slices(len(rows), n)] for rows in chunks]
+        starts = np.cumsum([[0] * n] + [[len(p) for p in c] for c in pieces], axis=0)
+        own = [np.concatenate([c[k] for c in pieces]) for k in range(n)]
+        # each shard's pair indices and draws go up once, before the first
+        # launch: a pageable copy returns only when it is done, so a copy a
+        # chunk would hold the other devices back
+        up = [(torch.as_tensor(pair_i[rows], device=dev),
+               torch.as_tensor(pair_j[rows], device=dev),
+               None if draws is None else draws[torch.as_tensor(rows)].to(dev))
+              for rows, dev in zip(own, mesh.devices)]
+        parts = [[] for _ in range(n)]
+
+        for c, rows in enumerate(chunks):
             t0 = time.perf_counter()
-            ii = torch.as_tensor(pair_i[s:s + C], device=self.device)
-            jj = torch.as_tensor(pair_j[s:s + C], device=self.device)
-            parts.append(self._register(
-                feats1.map(lambda x: x[ii]), feats2.map(lambda x: x[jj]),
-                ids1_all[ii], ids2_all[jj], cfg,
-                None if draws is None else draws[s:s + C]))
+            finish = []
+            for k in range(n):
+                sl = slice(int(starts[c][k]), int(starts[c + 1][k]))
+                if sl.start == sl.stop:
+                    continue
+                ii, jj, dr = (None if x is None else x[sl] for x in up[k])
+                f1, f2, ids1, ids2 = data[k]
+                finish.append((k, self._launch(
+                    f1.map(lambda x: x[ii]), f2.map(lambda x: x[jj]),
+                    ids1[ii], ids2[jj], cfg, dr)))
+            for k, done in finish:
+                parts[k].append(done())
             if times is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                times[s:s + C] = (time.perf_counter() - t0) / len(ii)
+                for dev in set(mesh.devices):
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                times[rows] = (time.perf_counter() - t0) / len(rows)
 
-        def cat(name):
-            fields = [getattr(r, name) for r in parts]
-            return None if fields[0] is None else torch.cat(fields)
+        order = torch.as_tensor(np.concatenate(own))
 
-        return RegistrationResult(**{f.name: cat(f.name)
+        def home(name):
+            if name == "u" or getattr(parts[0][0], name) is None:
+                return None
+            x = torch.cat([torch.cat([getattr(r, name) for r in p]).cpu()
+                           for p in parts if p])
+            out = torch.empty_like(x)
+            out[order] = x
+            return out
+
+        return RegistrationResult(**{f.name: home(f.name)
                                      for f in dataclasses.fields(RegistrationResult)})
 
     def __call__(self, feats1: SubmapFeatures, feats2: SubmapFeatures,
@@ -135,52 +187,48 @@ class PairGridRegistrar:
         indices to register; seed: the ransac draws' seed. Returns a
         RegistrationResult of numpy arrays of length P (u dropped;
         converged None for ransac), and with timed=True also the (P,)
-        per-pair wall times (chunk time / chunk size)."""
+        per-pair wall times (chunk time / chunk size, a chunk's time
+        covering all of its shards)."""
         P = len(pair_i)
         self.rescued = 0
         if P == 0:
             return (None, np.zeros(0)) if timed else None
         pair_i = np.asarray(pair_i)
         pair_j = np.asarray(pair_j)
-        feats1 = feats1.map(lambda x: x.to(self.device))
-        feats2 = feats2.map(lambda x: x.to(self.device))
-        ids1_all = torch.as_tensor(np.asarray(ids1_all), device=self.device)
-        ids2_all = torch.as_tensor(np.asarray(ids2_all), device=self.device)
+        data = replicated((feats1, feats2, np.asarray(ids1_all),
+                           np.asarray(ids2_all)), self.mesh)
         times = np.zeros(P) if timed else None
         draws = (reg.ransac_draws(seed, P, self.cfg.ransac_iter)
                  if self.cfg.method == "ransac" else None)
-        res = self._run(feats1, feats2, ids1_all, ids2_all, pair_i, pair_j,
-                        self.cfg, times, draws)
+        res = self._run(self.mesh, data, pair_i, pair_j, self.cfg, times, draws)
         if res.converged is not None:
-            bad = np.flatnonzero(~res.converged.cpu().numpy())
+            bad = np.flatnonzero(~res.converged.numpy())
             self.rescued = int(bad.size)
             if bad.size:
                 rcfg = dataclasses.replace(self.cfg,
                                            solver=reg.rescue_solver(self.cfg.solver))
-                res2 = self._run(feats1, feats2, ids1_all, ids2_all, pair_i[bad],
-                                 pair_j[bad], rcfg)
+                res2 = self._run(Mesh(self.mesh.devices[:1]), data[:1],
+                                 pair_i[bad], pair_j[bad], rcfg)
                 res = reg.splice_rescued(res, res2, bad)
 
-        def host(x):
-            return None if x is None else x.cpu().numpy()
-
-        out = RegistrationResult(
-            sel=host(res.sel), count=host(res.count), T_align=host(res.T_align),
-            ok=host(res.ok), u=None, score=host(res.score),
-            converged=host(res.converged))
+        out = RegistrationResult(**{
+            f.name: None if getattr(res, f.name) is None else getattr(res, f.name).numpy()
+            for f in dataclasses.fields(RegistrationResult)})
         return (out, times) if timed else out
 
 
 def submap_align(sm_params: SubmapAlignParams, sm_io: SubmapAlignInputOutput,
-                 chunk_size: int = 64,
+                 mesh: Optional[Mesh] = None, chunk_size: int = 64,
                  precomputed_submaps: Optional[List[List[Submap]]] = None,
                  roman_maps: Optional[List[RomanMap]] = None,
                  device=None, seed: int = 0) -> SubmapAlignResults:
     """Full alignment stage; equivalent of reference submap_align
     (submap_align.py:28-220), writing the same artifact set. Registers on
-    `device` (default cuda; device="cpu" runs the plain PyTorch path);
-    seed is the ransac draws' seed."""
-    device = resolve_device(device)
+    `device` (default cuda; device="cpu" runs the plain PyTorch path), or
+    with each chunk's pairs split across `mesh` (``parallel.mesh``; its
+    first device is then the stage's device); seed is the ransac draws'
+    seed."""
+    device = home_device(mesh, device)
     # --- load ground truth pose data (submap_align.py:41-58) ---
     gt_pose_data = [None, None]
     for i, yaml_file in enumerate(sm_io.input_gt_pose_yaml):
@@ -209,8 +257,8 @@ def submap_align(sm_params: SubmapAlignParams, sm_io: SubmapAlignInputOutput,
     total_t0 = time.time()
     cfg = sm_params.get_registration_config()
     results = align_submap_lists(
-        submaps, cfg, sm_params, sm_io, gt_pose_data, chunk_size=chunk_size,
-        device=device, seed=seed,
+        submaps, cfg, sm_params, sm_io, gt_pose_data, mesh=mesh,
+        chunk_size=chunk_size, device=device, seed=seed,
     )
     results.total_time = time.time() - total_t0
 
@@ -220,10 +268,12 @@ def submap_align(sm_params: SubmapAlignParams, sm_io: SubmapAlignInputOutput,
 
 def align_submap_lists(submaps, cfg: RegistrationConfig,
                        sm_params: SubmapAlignParams, sm_io: SubmapAlignInputOutput,
-                       gt_pose_data=(None, None), chunk_size: int = 64,
-                       device=None, seed: int = 0) -> SubmapAlignResults:
-    """Core grid alignment on prebuilt submap lists."""
-    device = resolve_device(device)
+                       gt_pose_data=(None, None), mesh: Optional[Mesh] = None,
+                       chunk_size: int = 64, device=None,
+                       seed: int = 0) -> SubmapAlignResults:
+    """Core grid alignment on prebuilt submap lists (the registration split
+    across `mesh` when one is given)."""
+    device = home_device(mesh, device)
     n0, n1 = len(submaps[0]), len(submaps[1])
     cap = sm_params.submap_max_size
 
@@ -307,7 +357,7 @@ def align_submap_lists(submaps, cfg: RegistrationConfig,
     # ---- the batched registration (device) ----
     registrar = PairGridRegistrar(
         cfg, single_robot_lc=sm_params.single_robot_lc, chunk_size=chunk_size,
-        device=device,
+        mesh=mesh, device=device,
     )
     t0 = time.time()
     if sm_params.per_pair_timing:

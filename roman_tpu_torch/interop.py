@@ -55,6 +55,14 @@ def load_reference_map(path: str) -> RomanMap:
     return convert_reference_map(obj)
 
 
+def is_reference_map(obj) -> bool:
+    """True for a reference ROMANMap object (a class named ROMANMap from a
+    module under a `roman` package), False for a RomanMap or anything
+    else."""
+    return (type(obj).__module__.startswith("roman")
+            and type(obj).__name__ == "ROMANMap")
+
+
 def convert_reference_map(obj) -> RomanMap:
     """Map reference ROMANMap attributes (map.py:18-41) to RomanMap."""
     d = obj.__dict__

@@ -168,17 +168,21 @@ class _FrameGraph:
                        torch.zeros((O, D), dtype=torch.float32, device=dev),
                        torch.zeros((O,), dtype=torch.bool, device=dev))
         # a first run on a side stream does the lazy initializations that
-        # capture does not allow (torch.cuda.graphs' warmup)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            mapper._frame(self.state, *self.inputs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            out = mapper._frame(self.state, *self.inputs)
-            for k in _FIELDS:
-                getattr(self.state, k).copy_(getattr(out, k))
+        # capture does not allow (torch.cuda.graphs' warmup); the capture
+        # runs on that stream too, under the mapper's device, so a mapper
+        # on any card of a mesh captures there (torch.cuda.graph's own
+        # capture stream is made once, on the device current at first use)
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                mapper._frame(self.state, *self.inputs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):
+                out = mapper._frame(self.state, *self.inputs)
+                for k in _FIELDS:
+                    getattr(self.state, k).copy_(getattr(out, k))
 
     def run(self, state: MapState, frames) -> MapState:
         """The frames (tuples of the six inputs) from `state`; returns a

@@ -46,3 +46,29 @@ def arun(pts1: torch.Tensor, pts2: torch.Tensor,
     R = torch.einsum("...ik,...k,...kj->...ij", U, flip, Vh)
     t = m1 - torch.einsum("...ij,...j->...i", R, m2)
     return make_T(R, t)
+
+
+def umeyama_alignment(src: torch.Tensor, dst: torch.Tensor,
+                      with_scale: bool = False):
+    """Umeyama alignment of trajectories for ATE evaluation (roman_tpu/
+    ops/arun.py:67-95; reference roman/offline_rpgo/evaluate.py:10-53).
+
+    src, dst: (n, 3). Returns (R, t, s) with dst ~= s R src + t.
+    """
+    n = src.shape[0]
+    mu_src = torch.mean(src, dim=0)
+    mu_dst = torch.mean(dst, dim=0)
+    src_c = src - mu_src
+    dst_c = dst - mu_dst
+    cov = (dst_c.T @ src_c) / n
+    U, D, Vh = torch.linalg.svd(cov)
+    S = torch.ones(3, dtype=src.dtype, device=src.device)
+    S[2] = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vh))
+    R = (U * S[None, :]) @ Vh
+    if with_scale:
+        var_src = torch.mean(torch.sum(src_c**2, dim=1))
+        s = torch.sum(D * S) / torch.clamp(var_src, min=_EPS)
+    else:
+        s = torch.ones((), dtype=src.dtype, device=src.device)
+    t = mu_dst - s * (R @ mu_src)
+    return R, t, s

@@ -83,6 +83,37 @@ def apply_T(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
             + T[..., None, :3, 3])
 
 
+def yaw_of_rot(R: torch.Tensor) -> torch.Tensor:
+    """Z angle of the ZYX euler decomposition, atan2(R10, R00)
+    (roman_tpu/ops/se3.py:117-120)."""
+    return torch.atan2(R[..., 1, 0], R[..., 0, 0])
+
+
+def rot_z(yaw: torch.Tensor) -> torch.Tensor:
+    """Rotations about z by yaw (...,) -> (..., 3, 3)."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    z, o = torch.zeros_like(yaw), torch.ones_like(yaw)
+    return torch.stack([c, -s, z, s, c, z, z, z, o],
+                       dim=-1).reshape(yaw.shape + (3, 3))
+
+
+def rotation_rm_roll_pitch(R: torch.Tensor) -> torch.Tensor:
+    """The yaw-only part of a rotation (reference roman/utils.py:125-127)."""
+    return rot_z(yaw_of_rot(R))
+
+
+def transform_rm_roll_pitch(T: torch.Tensor) -> torch.Tensor:
+    """The yaw-only part of an SE(3), translation kept (reference
+    roman/utils.py:128-130); returns a new matrix."""
+    return make_T(rotation_rm_roll_pitch(T[..., :3, :3]), T[..., :3, 3])
+
+
+def rotation_magnitude(R: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle of rotation matrices (scipy Rotation.magnitude)."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    return torch.acos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+
+
 def T_to_xyzrpy(T: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) -> (..., 6) [x y z roll pitch yaw], 'ZYX' intrinsic
     euler (roman_tpu/ops/se3.py:143-154)."""

@@ -437,34 +437,44 @@ class _Graph:
         return torch.einsum("ea,eab,eb->e", r, self.info, r)
 
 
-def _gn_step(g: _Graph, T, w_edge, params: RPGOSolverParams):
-    """One Gauss-Newton step: Jacobians, J'W r, block-Jacobi PCG for
-    H dx = -J'W r (exactly cg_iters iterations), T <- T exp(dx)
-    (roman_tpu solver.py:326-393). Each edge's (12, 12) block
-    H_e = J_e' W_e J_e, J_e = [J_i J_j], is formed once per step, so a CG
-    matvec is one gather, one batched product and one segment sum."""
+def _edge_terms(g: _Graph, T, w_edge):
+    """g's edges' part of a Gauss-Newton step at poses T: the (E, 12, 12)
+    blocks H_e = J_e' W_e J_e, J_e = [J_i J_j] (each formed once a step),
+    and their segment sums onto g's vertices: the gradient J'W r (V, 6)
+    and the preconditioner's diagonal blocks (V, 6, 6)."""
     E = g.ii.shape[0]
     Ti, Tj = T[g.ii], T[g.jj]
     J = torch.cat(_edge_jacobians(Ti, Tj, g.Tm_inv), dim=-1)  # (E, 6, 12)
     r = _edge_residual(Ti, Tj, g.Tm_inv)
     JtW = J.transpose(-1, -2) @ (g.info * w_edge[:, None, None])
     H = JtW @ J  # (E, 12, 12)
-    # gauge prior on vertex 0, and damping, on the diagonal of H
-    diag = params.gauge_weight * g.gauge + params.damping
-
-    def scatter(terms):  # (E, 12, ...) per edge -> (V, 6, ...) per vertex
-        return g.segsum(terms.reshape((2 * E, 6) + terms.shape[2:]))
-
-    def A_matvec(x):
-        return torch.addcmul(
-            scatter(H @ x[g.ends].reshape(E, 12, 1)).reshape(g.V, 6), diag, x)
-
-    grad = scatter(JtW @ r[..., None]).reshape(g.V, 6)
-    eye = torch.eye(6, dtype=torch.float32, device=T.device)
+    grad = g.segsum((JtW @ r[..., None]).reshape(2 * E, 6, 1)).reshape(g.V, 6)
     Hd = torch.stack([H[:, :6, :6], H[:, 6:, 6:]], dim=1)  # (E, 2, 6, 6)
     blocks = g.segsum(Hd.reshape(2 * E, 6, 6))
+    return H, grad, blocks
+
+
+def _edge_matvec(g: _Graph, H, x):
+    """(H x) summed onto g's vertices, x (V, 6) -> (V, 6): one gather, one
+    batched product and one segment sum."""
+    E = H.shape[0]
+    return g.segsum((H @ x[g.ends].reshape(E, 12, 1)).reshape(2 * E, 6, 1)
+                    ).reshape(g.V, 6)
+
+
+def _pcg_update(T, grad, blocks, matvec, gauge, params: RPGOSolverParams):
+    """Block-Jacobi PCG for (H + prior + damping) dx = -grad, exactly
+    cg_iters iterations, then T <- T exp(dx). matvec(x) is H x; gauge (V, 1)
+    is 1 on vertex 0's row, which carries the gauge prior."""
+    # gauge prior on vertex 0, and damping, on the diagonal of H
+    diag = params.gauge_weight * gauge + params.damping
+
+    def A_matvec(x):
+        return torch.addcmul(matvec(x), diag, x)
+
+    eye = torch.eye(6, dtype=torch.float32, device=T.device)
     blocks = (blocks + (params.damping + 1e-6) * eye
-              + params.gauge_weight * g.gauge[:, :, None] * eye)
+              + params.gauge_weight * gauge[:, :, None] * eye)
     blocks_inv = torch.linalg.inv(blocks)
 
     def M_inv(x):
@@ -473,7 +483,7 @@ def _gn_step(g: _Graph, T, w_edge, params: RPGOSolverParams):
     def dot(a, b):
         return torch.vdot(a.reshape(-1), b.reshape(-1))
 
-    x = torch.zeros((g.V, 6), dtype=torch.float32, device=T.device)
+    x = torch.zeros_like(grad)
     rr = -grad - A_matvec(x)
     zz = M_inv(rr)
     p = zz
@@ -490,6 +500,15 @@ def _gn_step(g: _Graph, T, w_edge, params: RPGOSolverParams):
         p = torch.addcmul(zz, beta, p)
         rz = rz_new
     return T @ se3.se3_exp(x)
+
+
+def _gn_step(g: _Graph, T, w_edge, params: RPGOSolverParams):
+    """One Gauss-Newton step: Jacobians, J'W r, block-Jacobi PCG for
+    H dx = -J'W r (exactly cg_iters iterations), T <- T exp(dx)
+    (roman_tpu solver.py:326-393)."""
+    H, grad, blocks = _edge_terms(g, T, w_edge)
+    return _pcg_update(T, grad, blocks, lambda x: _edge_matvec(g, H, x),
+                       g.gauge, params)
 
 
 def solve_arrays(

@@ -536,3 +536,22 @@ def test_viz_clis_without_cv2_and_matplotlib_name_the_package_and_write_nothing(
             importlib.import_module(f"roman_tpu_torch.demo.{cli}").main(
                 [a.format(**fill) for a in argv])
     assert sorted(p for p in tmp_path.rglob("*")) == before
+
+
+def test_chunked_mapping_pickle_equals_roman_tpu(tmp_path):
+    """demo/mapping.py::mapping in time chunks of 4 dt on the world of
+    tests/test_chunked_mapping.py (seed 5, 150 objects, dt 0.5) writes the
+    same map pickle, byte for byte, in both packages."""
+    from demo.mapping import mapping as j_mapping
+    from roman_tpu_torch.demo.mapping import mapping as t_mapping
+
+    params = tmp_path / "params"
+    params.mkdir()
+    with open(params / "data.yaml", "w") as f:
+        yaml.dump({"runs": ["robot0"], "dt": 0.5, "img_data_params": {
+            "type": "sim", "seed": 5, "n_robots": 1, "n_objects": 150,
+            "area": [40.0, 40.0, 4.0], "traj_len": 30.0, "desc_dim": 8}}, f)
+    j_mapping(str(params), str(tmp_path / "jax"), "robot0", max_time=2.0)
+    got = t_mapping(str(params), str(tmp_path / "port"), "robot0", max_time=2.0)
+    assert got.times[-1] - got.times[0] >= 29.0 and len(got.segments) > 100
+    assert (tmp_path / "port.pkl").read_bytes() == (tmp_path / "jax.pkl").read_bytes()
