@@ -119,9 +119,20 @@ N = 1600 candidate associations each), and then:
    the port's native referee (g++, into build/): the serial C++ CLIPPER
    solve on the first 8 bench pairs, its pairs/s and its LC agreement
    with the kernels (a record);
-16. prints one JSON line of per-kernel numbers (launches on the main path,
-   on phases 10 and 13's demo runs, on phase 14's classes and CLI, and on
-   phase 15's dryrun_multichip), the card's name and power limit again,
+16. runs the adversarial quality sweep (roman_tpu_torch.eval.adversarial)
+   at adversarial_eval.py's defaults: eight nuisance scenarios (drift 0.3,
+   0.6 and 1.0 m, yaw 180 degrees, 50% duplicates, a symmetric layout, low
+   overlap) of 24 positive and 16 negative pairs at capacity 40 with 128-d
+   descriptors, through the kernels (every launch count set to 0 just
+   before and read just after; all four kernels must launch) and through
+   the serial numpy referee: each scenario's P/R for both with Wilson
+   intervals and their outcome agreement, the launch counts and the wall;
+   then the same pairs through the plain twins on the card, whose LC
+   decisions must equal the kernels' on every pair;
+17. prints one JSON line of per-kernel numbers (launches on the main path,
+   on phases 10 and 13's demo runs, on phase 14's classes and CLI, on
+   phase 15's dryrun_multichip and on phase 16's sweep), the card's name
+   and power limit again,
    and last {"ok": true, "device": {...}}. No kernel of the port lies on the mapping or perception paths
    (phases 9 and 11-12 launch none).
 
@@ -2177,6 +2188,64 @@ def run_mesh(feats, auxs, cfg, grid):
     return dict(rates=rates, launches=counts, native_pairs_per_s=serial)
 
 # ---------------------------------------------------------------------------
+# phase 16: the adversarial quality sweep (roman_tpu_torch.eval.adversarial)
+# ---------------------------------------------------------------------------
+
+# adversarial_eval.py's defaults: 24 positives and 16 negatives a scenario,
+# one seed, capacity 40, 128-d descriptors, one restart, the referee on
+ADV_PAIRS = 24
+ADV_CAPACITY = 40
+ADV_DESC_DIM = 128
+
+
+def run_adversarial(device):
+    """Phase 16: the eight nuisance scenarios through the kernels and
+    through the serial numpy referee, every launch count set to 0 just
+    before and read just after (all four kernels must launch); then the
+    same pairs through the plain twins on the card, whose LC decisions
+    must equal the kernels' on every pair."""
+    import torch
+
+    from roman_tpu_torch.eval import adversarial as adv
+
+    cfg = adv.make_config(1)
+    sweep = dict(pairs=ADV_PAIRS, capacity=ADV_CAPACITY, desc_dim=ADV_DESC_DIM)
+    t0 = time.perf_counter()
+    reset_launches()
+    results = list(adv.sweep(cfg, device, referee=True, **sweep))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    wall = time.perf_counter() - t0
+    with plain_path():
+        plain = [d for _, d in adv.sweep(cfg, device, referee=False, **sweep)]
+    agree_all = []
+    for (row, d), p in zip(results, plain):
+        e, b = d["engine"], d["referee"]
+        outcome = lambda x: np.stack([x["predicted"], x["predicted"] & x["good"]], 1)  # noqa: E731
+        vs_referee = float(np.mean((outcome(e) == outcome(b)).all(1)))
+        vs_plain = float(np.mean(e["predicted"] == p["engine"]["predicted"]))
+        same_counts = bool(np.array_equal(e["counts"], p["engine"]["counts"]))
+        agree_all.append(vs_plain)
+        pr = lambda who: (  # noqa: E731
+            f"P {row[who + '_precision']} [{row[who + '_p_ci'][0]:.3f}, "
+            f"{row[who + '_p_ci'][1]:.3f}] R {row[who + '_recall']} "
+            f"[{row[who + '_r_ci'][0]:.3f}, {row[who + '_r_ci'][1]:.3f}]")
+        print(f"adversarial {row['scenario']}: {row['pairs']} pairs; engine "
+              f"{pr('engine')}, referee {pr('referee')}; outcome agreement engine vs "
+              f"referee {vs_referee}; LC decisions vs the plain twins on the card "
+              f"{vs_plain} (counts equal {same_counts}); engine "
+              f"{d['seconds']['engine']:.2f} s, referee {d['seconds']['referee']:.2f} s",
+              flush=True)
+    print(f"adversarial sweep (capacity {ADV_CAPACITY}, {ADV_DESC_DIM}-d, "
+          f"{ADV_PAIRS} positives + {max(ADV_PAIRS * 2 // 3, 4)} negatives a scenario): "
+          f"wall {wall:.1f} s, launches {counts}; {nvidia_smi()}", flush=True)
+    require(all(v > 0 for v in counts.values()),
+            f"a kernel was not launched by the adversarial sweep: {counts}")
+    require(all(a == 1.0 for a in agree_all),
+            f"the kernels' LC decisions differ from the plain twins': {agree_all}")
+    return dict(launches=counts, wall=wall, rows=[r for r, _ in results])
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2232,6 +2301,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh = run_mesh(feats, auxs, cfg, grid)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    adversarial = run_adversarial(dev)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
 
     sources = {"clipper_solve": "roman_tpu_torch/csrc/clipper_solve.cu"}
     replaces = {"clipper_solve": "roman_tpu/align/clipper_pallas.py:50"}
@@ -2244,6 +2316,7 @@ def main() -> int:
         per_pair_launches=per_pair["launches"][r["name"]],
         loop_closures_launches=per_pair["cli_launches"][r["name"]],
         mesh_launches=mesh["launches"][r["name"]],
+        adversarial_launches=adversarial["launches"][r["name"]],
         max_abs_err=r["max_abs_err"],
         ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound"][0],
