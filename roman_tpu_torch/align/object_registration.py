@@ -29,6 +29,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from roman_tpu_torch import tracing
 from roman_tpu_torch.align.invariants import SubmapFeatures
 from roman_tpu_torch.align.registration import (RegistrationConfig,
                                                 RegistrationResult, build_features,
@@ -113,6 +114,7 @@ def segments_to_features(objs: Sequence, cfg: RegistrationConfig,
         valid[j] = True
 
     def dev(x):
+        tracing.count_sync(device)  # a copy from host memory returns when it is done
         return torch.as_tensor(x, device=device)
 
     return build_features(dev(centers), dev(valid), cfg, pca_attrs=dev(pca),
@@ -121,6 +123,7 @@ def segments_to_features(objs: Sequence, cfg: RegistrationConfig,
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
+    tracing.count_sync(x.device)
     return x.cpu().numpy()
 
 
@@ -138,8 +141,12 @@ class ObjectRegistration:
     def _features(self, map1, map2):
         """Both sides as SubmapFeatures on this registration's device."""
         if isinstance(map1, SubmapFeatures):
-            return (map1.map(lambda x: x.to(self.device)),
-                    map2.map(lambda x: x.to(self.device)))
+            def up(x):
+                if x.device.type == "cpu":
+                    tracing.count_sync(self.device)
+                return x.to(self.device)
+
+            return map1.map(up), map2.map(up)
         return (segments_to_features(map1, self.cfg, device=self.device),
                 segments_to_features(map2, self.cfg, device=self.device))
 
@@ -147,6 +154,7 @@ class ObjectRegistration:
     def _size(m) -> int:
         """Object count of a list or an (unbatched) SubmapFeatures."""
         if isinstance(m, SubmapFeatures):
+            tracing.count_sync(m.valid.device)
             return int(m.valid.sum())
         return len(m)
 
@@ -158,9 +166,14 @@ class ObjectRegistration:
         """Solve the pair; the (k, 2) selected association indices, the
         reference's return contract (:22-29). An empty side launches
         nothing and gives np.array([[]])."""
-        if self._size(map1) == 0 or self._size(map2) == 0:
-            return np.array([[]])
-        return np.argwhere(_host(self._solve(*self._features(map1, map2)).sel))
+        with tracing.span("per_pair.register"):
+            if self._size(map1) == 0 or self._size(map2) == 0:
+                return np.array([[]])
+            with tracing.span("per_pair.pack"):
+                f1, f2 = self._features(map1, map2)
+            sel = self._solve(f1, f2).sel
+            with tracing.span("per_pair.home"):
+                return np.argwhere(_host(sel))
 
     def T_align(self, map1: List, map2: List,
                 correspondences: Optional[np.ndarray] = None) -> np.ndarray:

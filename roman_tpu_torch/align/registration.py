@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from roman_tpu_torch import tracing
 from roman_tpu_torch.align import clipper as clipper_mod
 from roman_tpu_torch.align import invariants
 from roman_tpu_torch.align.fused_register import (FusedInvariantStatics,
@@ -219,28 +220,29 @@ def solve_clipper(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConfi
     the plain affinity, then the CLIPPER solve, then the plain rounding and
     refinement. On the card it launches the kernels and waits for none of
     them."""
-    if cfg.fusion == "geometric_mean":
-        gravity, use_ratio, use_cosine = cfg.solve_flags
-        inv = FusedInvariantStatics(
-            sigma=cfg.sigma, epsilon=cfg.epsilon, mindist=cfg.mindist,
-            cos_min=cfg.cos_min, cos_max=cfg.cos_max,
-            eps_shape=cfg.epsilon_shape, gravity=gravity,
-            gravity_unc_ang_rad=cfg.gravity_unc_ang_rad,
-            use_ratio=use_ratio and f1.ratio_feats.shape[-1] > 0,
-            use_cosine=use_cosine and f1.descriptors.shape[-1] > 0,
-            max_clique=cfg.max_clique,
-        )
-        return fused_register(f1, f2, inv, cfg.solver, assoc_mask=assoc_mask)
-    p = cfg.invariant_params(f1.ratio_feats.shape[-1], device=f1.centers.device)
-    M4, _ = invariants.affinity(f1, f2, p)
-    valid = f1.valid[..., :, None] & f2.valid[..., None, :]
-    if assoc_mask is not None:
-        valid = valid & assoc_mask
-        keep = (assoc_mask[..., :, :, None, None]
-                & assoc_mask[..., None, None, :, :])
-        M4 = torch.where(keep, M4, 0.0)
-    max_clique = min(cfg.max_clique, f1.capacity, f2.capacity)
-    return clipper_mod.solve_and_round(M4, valid, max_clique, cfg.solver)
+    with tracing.span("registration.solve"):
+        if cfg.fusion == "geometric_mean":
+            gravity, use_ratio, use_cosine = cfg.solve_flags
+            inv = FusedInvariantStatics(
+                sigma=cfg.sigma, epsilon=cfg.epsilon, mindist=cfg.mindist,
+                cos_min=cfg.cos_min, cos_max=cfg.cos_max,
+                eps_shape=cfg.epsilon_shape, gravity=gravity,
+                gravity_unc_ang_rad=cfg.gravity_unc_ang_rad,
+                use_ratio=use_ratio and f1.ratio_feats.shape[-1] > 0,
+                use_cosine=use_cosine and f1.descriptors.shape[-1] > 0,
+                max_clique=cfg.max_clique,
+            )
+            return fused_register(f1, f2, inv, cfg.solver, assoc_mask=assoc_mask)
+        p = cfg.invariant_params(f1.ratio_feats.shape[-1], device=f1.centers.device)
+        M4, _ = invariants.affinity(f1, f2, p)
+        valid = f1.valid[..., :, None] & f2.valid[..., None, :]
+        if assoc_mask is not None:
+            valid = valid & assoc_mask
+            keep = (assoc_mask[..., :, :, None, None]
+                    & assoc_mask[..., None, None, :, :])
+            M4 = torch.where(keep, M4, 0.0)
+        max_clique = min(cfg.max_clique, f1.capacity, f2.capacity)
+        return clipper_mod.solve_and_round(M4, valid, max_clique, cfg.solver)
 
 
 def finish_clipper(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConfig,
@@ -248,10 +250,11 @@ def finish_clipper(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConf
     """The other half of register_clipper, on solve_clipper's outputs: the
     Arun T_align of the selection (on the card its SVD waits for the
     device), ok and converged."""
-    T = _t_align_from_selection(f1, f2, sel)
-    return RegistrationResult(sel=sel, count=count, T_align=T,
-                              ok=count >= cfg.dim, u=u, score=F,
-                              converged=_homotopy_converged(u, cfg.solver))
+    with tracing.span("registration.finish"):
+        T = _t_align_from_selection(f1, f2, sel)
+        return RegistrationResult(sel=sel, count=count, T_align=T,
+                                  ok=count >= cfg.dim, u=u, score=F,
+                                  converged=_homotopy_converged(u, cfg.solver))
 
 
 def register_clipper(f1: SubmapFeatures, f2: SubmapFeatures,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import yaml
 
+from roman_tpu_torch import tracing
 from roman_tpu_torch.align import registration as reg
 from roman_tpu_torch.align.invariants import SubmapFeatures
 from roman_tpu_torch.align.registration import RegistrationConfig, RegistrationResult
@@ -49,6 +50,12 @@ from roman_tpu_torch.params.submap_align_params import (
     SubmapAlignParams,
 )
 from roman_tpu_torch.utils import aabb_intersects, expandvars_recursive
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    """x.cpu(), counting the host's wait where x is on a card."""
+    tracing.count_sync(x.device)
+    return x.cpu()
 
 
 class PairGridRegistrar:
@@ -139,10 +146,14 @@ class PairGridRegistrar:
         # each shard's pair indices and draws go up once, before the first
         # launch: a pageable copy returns only when it is done, so a copy a
         # chunk would hold the other devices back
-        up = [(torch.as_tensor(pair_i[rows], device=dev),
-               torch.as_tensor(pair_j[rows], device=dev),
-               None if draws is None else draws[torch.as_tensor(rows)].to(dev))
-              for rows, dev in zip(own, mesh.devices)]
+        with tracing.span("engine.stage"):
+            for rows, dev in zip(own, mesh.devices):
+                if len(rows):  # a copy of nothing does not wait
+                    tracing.count_sync(dev, 2 if draws is None else 3)
+            up = [(torch.as_tensor(pair_i[rows], device=dev),
+                   torch.as_tensor(pair_j[rows], device=dev),
+                   None if draws is None else draws[torch.as_tensor(rows)].to(dev))
+                  for rows, dev in zip(own, mesh.devices)]
         parts = [[] for _ in range(n)]
 
         for c, rows in enumerate(chunks):
@@ -152,32 +163,34 @@ class PairGridRegistrar:
                 sl = slice(int(starts[c][k]), int(starts[c + 1][k]))
                 if sl.start == sl.stop:
                     continue
-                ii, jj, dr = (None if x is None else x[sl] for x in up[k])
-                f1, f2, ids1, ids2 = data[k]
-                finish.append((k, self._launch(
-                    f1.map(lambda x: x[ii]), f2.map(lambda x: x[jj]),
-                    ids1[ii], ids2[jj], cfg, dr)))
+                with tracing.span("engine.gather"):
+                    ii, jj, dr = (None if x is None else x[sl] for x in up[k])
+                    f1, f2, ids1, ids2 = data[k]
+                    chunk = (f1.map(lambda x: x[ii]), f2.map(lambda x: x[jj]),
+                             ids1[ii], ids2[jj])
+                finish.append((k, self._launch(*chunk, cfg, dr)))
             for k, done in finish:
                 parts[k].append(done())
             if times is not None:
                 for dev in set(mesh.devices):
                     if dev.type == "cuda":
+                        tracing.count_sync(dev)
                         torch.cuda.synchronize(dev)
                 times[rows] = (time.perf_counter() - t0) / len(rows)
-
-        order = torch.as_tensor(np.concatenate(own))
 
         def home(name):
             if name == "u" or getattr(parts[0][0], name) is None:
                 return None
-            x = torch.cat([torch.cat([getattr(r, name) for r in p]).cpu()
+            x = torch.cat([_to_host(torch.cat([getattr(r, name) for r in p]))
                            for p in parts if p])
             out = torch.empty_like(x)
             out[order] = x
             return out
 
-        return RegistrationResult(**{f.name: home(f.name)
-                                     for f in dataclasses.fields(RegistrationResult)})
+        with tracing.span("engine.home"):
+            order = torch.as_tensor(np.concatenate(own))
+            return RegistrationResult(**{f.name: home(f.name)
+                                         for f in dataclasses.fields(RegistrationResult)})
 
     def __call__(self, feats1: SubmapFeatures, feats2: SubmapFeatures,
                  ids1_all, ids2_all, pair_i, pair_j, seed: int = 0,
@@ -189,32 +202,36 @@ class PairGridRegistrar:
         converged None for ransac), and with timed=True also the (P,)
         per-pair wall times (chunk time / chunk size, a chunk's time
         covering all of its shards)."""
-        P = len(pair_i)
-        self.rescued = 0
-        if P == 0:
-            return (None, np.zeros(0)) if timed else None
-        pair_i = np.asarray(pair_i)
-        pair_j = np.asarray(pair_j)
-        data = replicated((feats1, feats2, np.asarray(ids1_all),
-                           np.asarray(ids2_all)), self.mesh)
-        times = np.zeros(P) if timed else None
-        draws = (reg.ransac_draws(seed, P, self.cfg.ransac_iter)
-                 if self.cfg.method == "ransac" else None)
-        res = self._run(self.mesh, data, pair_i, pair_j, self.cfg, times, draws)
-        if res.converged is not None:
-            bad = np.flatnonzero(~res.converged.numpy())
-            self.rescued = int(bad.size)
-            if bad.size:
-                rcfg = dataclasses.replace(self.cfg,
-                                           solver=reg.rescue_solver(self.cfg.solver))
-                res2 = self._run(Mesh(self.mesh.devices[:1]), data[:1],
-                                 pair_i[bad], pair_j[bad], rcfg)
-                res = reg.splice_rescued(res, res2, bad)
+        with tracing.span("engine.call"):
+            P = len(pair_i)
+            self.rescued = 0
+            if P == 0:
+                return (None, np.zeros(0)) if timed else None
+            pair_i = np.asarray(pair_i)
+            pair_j = np.asarray(pair_j)
+            with tracing.span("engine.stage"):
+                data = replicated((feats1, feats2, np.asarray(ids1_all),
+                                   np.asarray(ids2_all)), self.mesh)
+            times = np.zeros(P) if timed else None
+            draws = (reg.ransac_draws(seed, P, self.cfg.ransac_iter)
+                     if self.cfg.method == "ransac" else None)
+            res = self._run(self.mesh, data, pair_i, pair_j, self.cfg, times, draws)
+            if res.converged is not None:
+                with tracing.span("engine.rescue"):
+                    bad = np.flatnonzero(~res.converged.numpy())
+                    self.rescued = int(bad.size)
+                    if bad.size:
+                        rcfg = dataclasses.replace(self.cfg,
+                                                   solver=reg.rescue_solver(self.cfg.solver))
+                        res2 = self._run(Mesh(self.mesh.devices[:1]), data[:1],
+                                         pair_i[bad], pair_j[bad], rcfg)
+                        res = reg.splice_rescued(res, res2, bad)
 
-        out = RegistrationResult(**{
-            f.name: None if getattr(res, f.name) is None else getattr(res, f.name).numpy()
-            for f in dataclasses.fields(RegistrationResult)})
-        return (out, times) if timed else out
+            with tracing.span("engine.home"):
+                out = RegistrationResult(**{
+                    f.name: None if getattr(res, f.name) is None else getattr(res, f.name).numpy()
+                    for f in dataclasses.fields(RegistrationResult)})
+            return (out, times) if timed else out
 
 
 def submap_align(sm_params: SubmapAlignParams, sm_io: SubmapAlignInputOutput,

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from roman_tpu_torch import tracing
 from roman_tpu_torch.ops.se3 import make_T
 
 _EPS = 1e-9
@@ -39,6 +40,9 @@ def arun(pts1: torch.Tensor, pts2: torch.Tensor,
     c1 = pts1 - m1[..., None, :]
     c2 = pts2 - m2[..., None, :]
     H = torch.einsum("...ni,...nj->...ij", c1, c2 * w)
+    # on the card the SVD waits twice: to see whether its Jacobi solver
+    # converged everywhere, and to check its result
+    tracing.count_sync(H.device, 2)
     U, _, Vh = torch.linalg.svd(H)
     det = torch.linalg.det(U @ Vh)
     one = torch.ones_like(det)

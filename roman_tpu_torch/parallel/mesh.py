@@ -23,6 +23,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from roman_tpu_torch import tracing
 from roman_tpu_torch.device import resolve_device
 
 
@@ -149,5 +150,13 @@ def replicated(tree, mesh: Mesh) -> list:
     copies = {}
     for d in mesh.devices:
         if d not in copies:
-            copies[d] = _tree_map(lambda x, d=d: torch.as_tensor(x, device=d), tree)
+            copies[d] = _tree_map(lambda x, d=d: _copy_to(x, d), tree)
     return [copies[d] for d in mesh.devices]
+
+
+def _copy_to(x, device: torch.device) -> torch.Tensor:
+    """torch.as_tensor(x, device=device), counting the host's wait where a
+    host array goes to a card (a pageable copy returns when it is done)."""
+    if (isinstance(x, np.ndarray) or x.device.type == "cpu") and x.nbytes:
+        tracing.count_sync(device)
+    return torch.as_tensor(x, device=device)
