@@ -25,7 +25,7 @@ N = 1600 candidate associations each), and then:
    rounding's cut, entries it selects), and the bf16 ulp histogram of
    build_affinity against its twin with the nonzero share of M; holds
    and times the CLIPPER solve also on 1 and 8 pairs and at the rescue
-   budget (pairs, blocks per pair, GB/s of M streamed), beside a
+   budget (pairs, blocks per pair, live rows of M a pair), beside a
    yardstick: one torch.bmm of bf16 u by M, times the solve's matvec
    count;
 3. runs the alignment stage through its entry point ``submap_align`` from
@@ -475,10 +475,11 @@ def check_kernels(feats, auxs, cfg, ptxas=(), reps=10, plain_reps=3):
         ms = cuda_ms(lambda: clipper_solve(Mc, vc, n, m, prm), reps)
         dms = device_ms(lambda: clipper_solve(Mc, vc, n, m, prm), reps,
                         "clipper_solve_kernel")
+        live = (Mc != 0).any(dim=-1).sum(dim=-1)  # rows holding a nonzero, a pair
         print(f"clipper_solve, {Pc} pairs, {what} ({passes} matvecs): {C} blocks "
-              f"a pair, {Pc * C} blocks, {ms:.4f} ms a call by CUDA events, "
-              f"{passes * nbytes(Mc) / ms / 1e6:.1f} GB/s of M streamed "
-              f"({dms:.4f} ms of device time); max |du| "
+              f"a pair, {Pc * C} blocks, {ms:.4f} ms a call by CUDA events "
+              f"({dms:.4f} ms of device time), live rows of M a pair mean "
+              f"{live.double().mean().item():.2f} max {int(live.max())} of {Mc.shape[1]}; max |du| "
               f"{du:.3e} (tol 2e-3), max rel d, F, omega {rel[0]:.3e} {rel[1]:.3e} "
               f"{rel[2]:.3e} (tol 1e-3)", flush=True)
         if Pc == P and prm is params:

@@ -22,7 +22,12 @@ affinity is not bitwise symmetric, so the orientation matters.
 The kernel is ``csrc/clipper_solve.cu``; the wrapper ``clipper_solve``
 launches it for CUDA tensors and runs ``clipper_solve_plain`` only for CPU
 tensors. The kernel solves each pair on a thread block cluster of
-``cluster_size(P, SMs)`` blocks, each streaming a slice of M's columns.
+``cluster_size(P, SMs)`` blocks, each owning a slice of M's columns: it
+streams the slice once, and keeps the slice's rows that hold a nonzero in
+shared memory for the other matvecs where they fit (else it streams them
+all). While a profiler records (``tracing``), the launch also counts the
+pairs (``solve.pairs``), their live rows of M (``solve.live_rows``) and the
+pairs whose blocks all kept their rows (``solve.resident_pairs``).
 """
 
 from __future__ import annotations
@@ -178,17 +183,25 @@ def clipper_solve(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
     if P == 0:
         return u, d, F, omega
     C = cluster_size(P, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # each pair's (live rows, every block resident), only while tracing
+    stats = (torch.empty((P, 2), dtype=torch.int32, device=dev)
+             if tracing.recording() else None)
     fn = build.function("clipper_solve", "clipper_solve_launch",
-                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(dev):
         err = fn(M.data_ptr(), valid.data_ptr(), noise.data_ptr(),
                  u.data_ptr(), d.data_ptr(), F.data_ptr(), omega.data_ptr(),
+                 None if stats is None else stats.data_ptr(),
                  P, N, n, m, R, params.warmup_iters, params.outer_iters,
                  params.inner_iters, C, params.active_eps,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("clipper_solve", err)
     clipper_solve.launches += 1
+    if stats is not None:
+        tracing.count("solve.pairs", P)
+        tracing.count_device("solve.live_rows", stats[:, 0])
+        tracing.count_device("solve.resident_pairs", stats[:, 1])
     return u, d, F, omega
 
 

@@ -213,6 +213,20 @@ def register_clipper_rescued(f1: SubmapFeatures, f2: SubmapFeatures,
     return splice_rescued(res, res2, bad)
 
 
+def fused_statics(cfg: RegistrationConfig, f1: SubmapFeatures) -> FusedInvariantStatics:
+    """The fused path's statics for cfg on features shaped as f1."""
+    gravity, use_ratio, use_cosine = cfg.solve_flags
+    return FusedInvariantStatics(
+        sigma=cfg.sigma, epsilon=cfg.epsilon, mindist=cfg.mindist,
+        cos_min=cfg.cos_min, cos_max=cfg.cos_max,
+        eps_shape=cfg.epsilon_shape, gravity=gravity,
+        gravity_unc_ang_rad=cfg.gravity_unc_ang_rad,
+        use_ratio=use_ratio and f1.ratio_feats.shape[-1] > 0,
+        use_cosine=use_cosine and f1.descriptors.shape[-1] > 0,
+        max_clique=cfg.max_clique,
+    )
+
+
 def solve_clipper(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConfig,
                   assoc_mask: Optional[torch.Tensor] = None):
     """The device half of register_clipper: (sel, count, u, F) of every
@@ -222,17 +236,8 @@ def solve_clipper(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConfi
     them."""
     with tracing.span("registration.solve"):
         if cfg.fusion == "geometric_mean":
-            gravity, use_ratio, use_cosine = cfg.solve_flags
-            inv = FusedInvariantStatics(
-                sigma=cfg.sigma, epsilon=cfg.epsilon, mindist=cfg.mindist,
-                cos_min=cfg.cos_min, cos_max=cfg.cos_max,
-                eps_shape=cfg.epsilon_shape, gravity=gravity,
-                gravity_unc_ang_rad=cfg.gravity_unc_ang_rad,
-                use_ratio=use_ratio and f1.ratio_feats.shape[-1] > 0,
-                use_cosine=use_cosine and f1.descriptors.shape[-1] > 0,
-                max_clique=cfg.max_clique,
-            )
-            return fused_register(f1, f2, inv, cfg.solver, assoc_mask=assoc_mask)
+            return fused_register(f1, f2, fused_statics(cfg, f1), cfg.solver,
+                                  assoc_mask=assoc_mask)
         p = cfg.invariant_params(f1.ratio_feats.shape[-1], device=f1.centers.device)
         M4, _ = invariants.affinity(f1, f2, p)
         valid = f1.valid[..., :, None] & f2.valid[..., None, :]

@@ -9,29 +9,53 @@
 // best feasible restart. Semantics: roman_tpu_torch/align/clipper_solve.py
 // (`clipper_solve_plain` is the twin this kernel is tested against).
 //
-// What bounds it on an H100: bytes. Every matvec u @ M streams the pair's
-// (N, N) bf16 matrix once (5.12 MB at N = 1600), and one solve does
-// warmup + outer * (inner + 1) + 1 = 51 of them at the default budget:
-// 261 MB a pair, 8.4 GB for a chunk of 32 pairs, which no cache on the card
-// holds. All R restart rows ride one pass over M (R accumulators a column),
-// as the TPU kernels let them ride one MXU pass, so the work stays at most
-// 2R operations per 2 bytes and the tensor cores would not help.
+// The layout. A pair is solved by a cluster of C blocks (C from the
+// wrapper: the largest power of two <= 8 with P * C <= SMs), and block
+// `rank` owns a slice of columns of u @ M, a multiple of 8 columns wide
+// (the last slice is ragged). All R restart rows ride one pass over the
+// slice (R accumulators a column). Inside a block a thread owns
+// neighbouring columns and one of S row segments (rows i = s mod S); each
+// segment sums its columns in row order and the segments are added in
+// segment order, so u is bitwise the same from run to run and depends on
+// the other pairs of the launch only through C.
 //
-// What the design does about it: every SM streams. A pair is solved by a
-// cluster of C blocks (C from the wrapper: the largest power of two <= 8
-// with P * C <= SMs), and block `rank` owns a slice of columns of u @ M, a
-// multiple of 8 columns wide (the last slice is ragged). It streams only
-// its slice, N rows of N / C columns (1.28 MB at C = 4), through a ring of
-// shared-memory stages of up to 128 rows that one thread keeps filled with
-// asynchronous bulk tensor copies (TMA boxes of at most 256 columns),
-// their arrival reported to an mbarrier a stage: 100-200 KB in flight an
-// SM, where 16-byte register loads kept about 32 KB. Where a row of M is
-// not 16-byte aligned, or two stages do not fit, threads load M into
-// registers instead, one column a thread. Inside a block a thread owns neighbouring columns and one of S
-// row segments (rows i = s mod S); each segment sums its columns in row
-// order and the segments are added in segment order, so u is bitwise the
-// same from run to run and depends on the other pairs of the launch only
-// through C.
+// What bounds a streamed solve: bytes. One solve does warmup + outer *
+// (inner + 1) + 1 = 51 matvecs at the default budget, and a matvec that
+// streams the pair's (N, N) bf16 M reads 5.12 MB at N = 1600: 261 MB a
+// pair, which no cache on the card holds. But the fused affinity is almost
+// all zeros: a row of M is +0 wherever its association fails the gates (on
+// the demo's grid 0.56% of the rows hold a nonzero, at most 3%), and a
+// zero row adds nothing to a column's sum (bf16(u_i) x 0 is a zero, and a
+// zero added to a sum that starts at +0 leaves it bitwise as it was). So:
+//
+// - the first matvec streams the block's slice (below) and marks every row
+//   that holds a nonzero in it; a row dead in this slice adds nothing to
+//   this block's columns, so no marks cross the cluster;
+// - the block then lists its marked rows in row order and copies its slice
+//   of them into shared memory (the ring's stages, free from then on), and
+//   every later matvec reads only those rows: thread (s, g) sums the listed
+//   rows of its segment, in row order, and the segments are added in
+//   segment order as before. Each matvec, and so the solve, is bitwise the
+//   streamed one;
+// - a block whose marked rows do not fit (a dense M, as the other fusions
+//   build; large slices) streams its slice for every matvec, as before.
+//   What it observes in M decides; nothing else does.
+//
+// With the rows on chip a matvec is a few microseconds of arithmetic, and
+// the solve is bound by what every iteration does besides: the cluster
+// exchanges of its sums (distributed shared memory and `cluster.sync()`),
+// the row and column sums of Cb u, and the first pass's one read of M.
+//
+// Streaming: where every row of M starts 16-byte aligned and two stages fit
+// beside the vectors, one thread keeps a ring of shared-memory stages of up
+// to 128 rows of the slice filled with asynchronous bulk tensor copies (TMA
+// boxes of at most 256 columns), their arrival reported to an mbarrier a
+// stage; a thread owns 8 neighbouring columns. Otherwise threads load M
+// into registers, one column a thread, and keep their rows in the shared
+// memory left after the vectors; that path takes every shape the kernel
+// takes at all, so it needs nothing more than the vectors (a block with no
+// room left streams). The resident rows keep each path's thread layout, so
+// its segments, and its sum order.
 //
 // The homotopy step is elementwise on the slice. What it needs of the
 // whole pair travels through distributed shared memory: each block sends
@@ -71,11 +95,22 @@ struct Scratch {
   float xch[2][kMaxCluster][kMaxSums];       // every rank's partials, by parity
   float tot[kMaxSums];                       // the cluster-wide sums
   float d[kMaxRestarts];
+  int live[kWarps];                          // marked rows each warp counted
+  int resident;                              // this block keeps its rows
 };
 
 // Width of a block's column slice: N / C rounded up to 8 columns.
 __host__ __device__ inline int slice_width(int N, int C) {
   return ((N + C - 1) / C + 7) / 8 * 8;
+}
+
+// Row segments of the register-load mapping (one column a thread) and of
+// the ring's (8 columns a thread) for a slice `width` columns wide.
+__device__ __forceinline__ int column_segments(int width) {
+  return (width == 0 || width >= kThreads) ? 1 : kThreads / width;
+}
+__device__ __forceinline__ int ring_segments(int width) {
+  return width / 8 >= kThreads ? 1 : kThreads / (width / 8);
 }
 
 // Eight bf16 as floats: a bf16 is the high half of the float it widens
@@ -89,56 +124,88 @@ __device__ __forceinline__ void widen8(const uint4 raw, float* m) {
   }
 }
 
+// ---- the first pass's marks ----
+//
+// The valid mask v holds 0 or 1 as floats, whose low 16 bits are zero, and
+// no matvec reads it. The first matvec marks row i live in the lowest byte
+// of v[i] (any thread that reads a nonzero of the row stores the same
+// byte); once the pass is over the marks are read and v is loaded again.
+__device__ __forceinline__ void mark(float* v, int i) {
+  reinterpret_cast<unsigned char*>(v + i)[0] = 1;
+}
+
+__device__ __forceinline__ bool marked(const float* v, int i) {
+  return (__float_as_uint(v[i]) & 0xFFu) != 0;
+}
+
+// Adds each thread's sums of its V columns jj0.. into w in segment order:
+// segment q's threads store (q = 0) or add their sums, then the block
+// waits, for q = 0 .. S-1.
+template <int R, int V>
+__device__ void add_segments(const float (&acc)[R][V], float* __restrict__ w,
+                             int s, int S, bool mine, int jj0, int Wp) {
+  for (int q = 0; q < S; ++q) {
+    if (mine && s == q)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const int jj = jj0 + v;
+          w[r * Wp + jj] = q == 0 ? acc[r][v] : w[r * Wp + jj] + acc[r][v];
+        }
+    __syncthreads();
+  }
+}
+
 // The register-load matvec, for rows of M that are not 16-byte aligned
 // or slices too wide for the ring: w[r*Wp + jj] = sum_i ub[r*N + i] *
 // M[i*N + c0 + jj] for the block's columns jj < width, one column a
 // thread. With fewer columns than threads the block splits the rows into
 // S = kThreads / width segments (rows i = s mod S), each summed in row
-// order, and adds the segments into w in segment order.
-template <int R>
+// order, and adds the segments into w in segment order. MARK: the first
+// pass, which also marks the rows it finds a nonzero in.
+template <int R, bool MARK>
 __device__ void matvec(const __nv_bfloat16* __restrict__ M,
-                       const float* __restrict__ ub, float* __restrict__ w,
-                       int N, int c0, int width, int Wp) {
-  const int S = (width == 0 || width >= kThreads) ? 1 : kThreads / width;
+                       const float* __restrict__ ub, float* __restrict__ marks,
+                       float* __restrict__ w, int N, int c0, int width, int Wp) {
+  const int S = column_segments(width);
   const int s = S == 1 ? 0 : threadIdx.x / width;
   const int j0 = S == 1 ? threadIdx.x : threadIdx.x % width;
-  float acc[R];
+  float acc[R][1];
   for (int jj = j0; jj < width && s < S; jj += (S == 1 ? kThreads : width)) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    for (int r = 0; r < R; ++r) acc[r][0] = 0.f;
     const __nv_bfloat16* col = M + c0 + jj;
     int i = s;
     for (; i + (kUnroll - 1) * S < N; i += kUnroll * S) {
-      float mv[kUnroll];
+      __nv_bfloat16 mb[kUnroll];
 #pragma unroll
-      for (int q = 0; q < kUnroll; ++q) mv[q] = __bfloat162float(col[(size_t)(i + q * S) * N]);
+      for (int q = 0; q < kUnroll; ++q) mb[q] = col[(size_t)(i + q * S) * N];
 #pragma unroll
-      for (int q = 0; q < kUnroll; ++q)
+      for (int q = 0; q < kUnroll; ++q) {
+        if (MARK && (__bfloat16_as_ushort(mb[q]) & 0x7FFF)) mark(marks, i + q * S);
+        const float mv = __bfloat162float(mb[q]);
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = __fmaf_rn(ub[r * N + i + q * S], mv[q], acc[r]);
+        for (int r = 0; r < R; ++r)
+          acc[r][0] = __fmaf_rn(ub[r * N + i + q * S], mv, acc[r][0]);
+      }
     }
     for (; i < N; i += S) {
-      const float mv = __bfloat162float(col[(size_t)i * N]);
+      const __nv_bfloat16 mb = col[(size_t)i * N];
+      if (MARK && (__bfloat16_as_ushort(mb) & 0x7FFF)) mark(marks, i);
+      const float mv = __bfloat162float(mb);
 #pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = __fmaf_rn(ub[r * N + i], mv, acc[r]);
+      for (int r = 0; r < R; ++r)
+        acc[r][0] = __fmaf_rn(ub[r * N + i], mv, acc[r][0]);
     }
     if (S == 1)
 #pragma unroll
-      for (int r = 0; r < R; ++r) w[r * Wp + jj] = acc[r];
+      for (int r = 0; r < R; ++r) w[r * Wp + jj] = acc[r][0];
   }
-  if (S > 1) {
-    // one column a thread: add the segments into w in segment order
-    const bool mine = j0 < width && s < S;
-    for (int q = 0; q < S; ++q) {
-      if (mine && s == q)
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          w[r * Wp + j0] = q == 0 ? acc[r] : w[r * Wp + j0] + acc[r];
-      __syncthreads();
-    }
-  } else {
+  if (S > 1)
+    add_segments<R, 1>(acc, w, s, S, s < S, j0, Wp);
+  else
     __syncthreads();
-  }
 }
 
 __device__ void round_bf16(const float* __restrict__ u, float* __restrict__ ub,
@@ -244,9 +311,10 @@ __device__ void scatter_u(cg::cluster_group& cluster, const float* __restrict__ 
 // column are filled with zeros and never read. Thread 0 fills; every warp
 // reports a consumed stage to its `empty` mbarrier, and thread 0 waits for
 // that before it refills the stage. Tiles are numbered over the whole
-// solve (tiles per matvec x matvecs), so the ring runs on into the next
-// matvec's first rows while the block exchanges and steps: M does not
-// change during the solve.
+// solve (tiles per matvec x matvecs). The ring first runs for the first
+// pass alone; a block that goes on streaming restarts it for the other
+// matvecs, and from then on it runs on into the next matvec's first rows
+// while the block exchanges and steps: M does not change during the solve.
 constexpr int kMaxStages = 4;
 constexpr int kMaxBox = 256;
 
@@ -258,7 +326,8 @@ struct Ring {
   int T, NS;               // rows a stage, stages
   int bc, nb;              // columns a box, boxes a stage
   int tiles;               // tiles a matvec: ceil(N / T)
-  int total;               // tiles of the whole solve
+  int matvecs;             // matvecs of the solve
+  int total;               // tiles the ring runs to
   int next;                // the next tile to consume
   int p;                   // the pair
 };
@@ -325,16 +394,28 @@ __device__ void ring_fill(const Ring& rg, int k, int c0) {
         : "memory");
 }
 
+// Thread 0 runs the ring on from tile rg.next to the end of the solve:
+// refills the next NS stages, each once every warp has read its last tile.
+__device__ void ring_restart(Ring& rg, int c0) {
+  rg.total = rg.tiles * rg.matvecs;
+  if (threadIdx.x != 0) return;
+  for (int k = rg.next; k < min(rg.next + rg.NS, rg.total); ++k) {
+    if (k >= rg.NS) mbar_wait(&rg.empty[k % rg.NS], (k / rg.NS - 1) & 1);
+    ring_fill(rg, k, c0);
+  }
+}
+
 // The matvec on rows read from the ring. A thread owns 8 neighbouring
 // columns (one 16-byte shared load a row) and one of S = kThreads / G row
 // segments of the G groups of 8 columns (rows i = s mod S), each summed in
-// row order; the segments are added into w in segment order.
-template <int R>
+// row order; the segments are added into w in segment order. MARK: the
+// first pass, which also marks the rows it finds a nonzero in.
+template <int R, bool MARK>
 __device__ void matvec_ring(Ring& rg, const float* __restrict__ ub,
-                            float* __restrict__ w, int N, int c0, int width,
-                            int Wp) {
+                            float* __restrict__ marks, float* __restrict__ w,
+                            int N, int c0, int width, int Wp) {
   const int G = width / 8;  // <= kThreads, checked by the launcher
-  const int S = G >= kThreads ? 1 : kThreads / G;
+  const int S = ring_segments(width);
   const int s = threadIdx.x / G, g = threadIdx.x % G;
   const bool mine = s < S;
   // this thread's 8 columns in a stage: box jj / bc, column jj % bc
@@ -354,8 +435,10 @@ __device__ void matvec_ring(Ring& rg, const float* __restrict__ ub,
       const __nv_bfloat16* tile = rg.buf + (size_t)st * rg.nb * rg.T * rg.bc + col_off;
       // this segment's rows of the tile: i = s mod S, in row order
       for (int i = row0 + (s - row0 % S + S) % S; i < row0 + rows; i += S) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(tile + (i - row0) * rg.bc);
+        if (MARK && ((raw.x | raw.y | raw.z | raw.w) & 0x7FFF7FFFu)) mark(marks, i);
         float mv[8];
-        widen8(*reinterpret_cast<const uint4*>(tile + (i - row0) * rg.bc), mv);
+        widen8(raw, mv);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float x = ub[r * N + i];
@@ -371,32 +454,183 @@ __device__ void matvec_ring(Ring& rg, const float* __restrict__ ub,
       ring_fill(rg, k + rg.NS, c0);
     }
   }
-  // add the segments into w in segment order
-  for (int q = 0; q < S; ++q) {
-    if (mine && s == q)
+  add_segments<R, 8>(acc, w, s, S, mine, jj0, Wp);
+}
+
+// ---- resident rows: the slice's live rows of M in shared memory ----
+//
+// The area after the vectors (the ring's stages, or what the register-load
+// path has left) holds, once the first pass is over, up to cap live rows:
+// a key per row (row | segment << 16, in row order; N < 2^16, as the
+// vectors in shared memory cap it) and the row's slice, Wp bf16.
+enum { kMark, kStream, kResident };
+
+struct Rows {
+  int* key;             // cap keys
+  __nv_bfloat16* val;   // cap rows of the slice
+  int cap;              // rows the area holds
+  int count;            // live rows of the slice
+  int state;            // kMark (before the first pass), kStream, kResident
+  int* stats;           // per pair (live rows, every block resident), or null
+};
+
+// The ring's matvec on the resident rows: thread (s, g) sums, in row order,
+// the rows of its segment that the first pass found live in the slice.
+template <int R>
+__device__ void matvec_rows8(const Rows& rw, const float* ub, float* __restrict__ w,
+                             int N, int width, int Wp) {
+  const int G = width / 8;
+  const int S = ring_segments(width);
+  const int s = threadIdx.x / G, g = threadIdx.x % G;
+  const bool mine = s < S;
+  float acc[R][8];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int v = 0; v < 8; ++v) {
-          const int jj = g * 8 + v;
-          w[r * Wp + jj] = q == 0 ? acc[r][v] : w[r * Wp + jj] + acc[r][v];
-        }
-    __syncthreads();
+    for (int v = 0; v < 8; ++v) acc[r][v] = 0.f;
+  if (mine)
+    for (int k = 0; k < rw.count; ++k) {
+      const int key = rw.key[k];
+      if ((key >> 16) != s) continue;
+      const int i = key & 0xFFFF;
+      float mv[8];
+      widen8(*reinterpret_cast<const uint4*>(rw.val + (size_t)k * Wp + g * 8), mv);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float x = ub[r * N + i];
+#pragma unroll
+        for (int v = 0; v < 8; ++v) acc[r][v] = __fmaf_rn(x, mv[v], acc[r][v]);
+      }
+    }
+  add_segments<R, 8>(acc, w, s, S, mine, g * 8, Wp);
+}
+
+// The register-load matvec on the resident rows, column by column.
+template <int R>
+__device__ void matvec_rows1(const Rows& rw, const float* ub, float* __restrict__ w,
+                             int N, int width, int Wp) {
+  const int S = column_segments(width);
+  const int s = S == 1 ? 0 : threadIdx.x / width;
+  const int j0 = S == 1 ? threadIdx.x : threadIdx.x % width;
+  float acc[R][1];
+  for (int jj = j0; jj < width && s < S; jj += (S == 1 ? kThreads : width)) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r][0] = 0.f;
+    for (int k = 0; k < rw.count; ++k) {
+      const int key = rw.key[k];
+      if ((key >> 16) != s) continue;
+      const int i = key & 0xFFFF;
+      const float mv = __bfloat162float(rw.val[(size_t)k * Wp + jj]);
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r][0] = __fmaf_rn(ub[r * N + i], mv, acc[r][0]);
+    }
+    if (S == 1)
+#pragma unroll
+      for (int r = 0; r < R; ++r) w[r * Wp + jj] = acc[r][0];
   }
+  if (S > 1)
+    add_segments<R, 1>(acc, w, s, S, s < S, j0, Wp);
+  else
+    __syncthreads();
+}
+
+// After the first pass: count the slice's marked rows; if they fit the
+// area, list them in row order with their segments and copy their slice of
+// M there, else stream (restarting the ring) for the rest of the solve.
+// With stats, rank 0 then writes the pair's live rows (marked in any
+// block) and whether every block keeps its rows.
+template <bool BULK>
+__device__ void settle(cg::cluster_group& cluster, Ring& rg, Rows& rw, Scratch& sc,
+                       float* v, const float* valid, const __nv_bfloat16* M,
+                       int N, int c0, int width, int Wp) {
+  // each warp counts a run of rows, a multiple of 32, 32 rows a ballot
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int run = ((N + kWarps - 1) / kWarps + 31) / 32 * 32;
+  const int lo = wid * run, hi = min(N, lo + run);
+  int n = 0;
+  for (int i0 = lo; i0 < hi; i0 += 32)
+    n += __popc(__ballot_sync(~0u, i0 + lane < hi && marked(v, i0 + lane)));
+  if (lane == 0) sc.live[wid] = n;
+  __syncthreads();
+  int before = 0;
+  rw.count = 0;
+  for (int q = 0; q < kWarps; ++q) {
+    before += q < wid ? sc.live[q] : 0;
+    rw.count += sc.live[q];
+  }
+  const bool keep = rw.count <= rw.cap;
+  if (keep && rw.count > 0) {
+    const int S = BULK ? ring_segments(width) : column_segments(width);
+    for (int i0 = lo; i0 < hi; i0 += 32) {
+      const int i = i0 + lane;
+      const bool on = i < hi && marked(v, i);
+      const unsigned b = __ballot_sync(~0u, on);
+      if (on) rw.key[before + __popc(b & ((1u << lane) - 1))] = i | (i % S) << 16;
+      before += __popc(b);
+    }
+    __syncthreads();
+    for (int k = 0; k < rw.count; ++k) {
+      const __nv_bfloat16* src = M + (size_t)(rw.key[k] & 0xFFFF) * N + c0;
+      for (int jj = threadIdx.x; jj < width; jj += kThreads)
+        rw.val[(size_t)k * Wp + jj] = src[jj];
+    }
+  }
+  rw.state = keep ? kResident : kStream;
+  if constexpr (BULK) {
+    if (!keep) ring_restart(rg, c0);
+  }
+  if (rw.stats) {
+    const int C = cluster.num_blocks();
+    if (threadIdx.x == 0) sc.resident = keep;
+    cluster.sync();  // every block's marks and choice are in place
+    if (cluster.block_rank() == 0) {
+      float live = 0.f;
+      for (int i = threadIdx.x; i < N; i += kThreads) {
+        bool any = false;
+        for (int q = 0; q < C; ++q) any = any || marked(cluster.map_shared_rank(v, q), i);
+        live += any ? 1.f : 0.f;
+      }
+      live = roman::block_sum(live, &sc.red[0][0]);  // exact: counts below 2^24
+      if (threadIdx.x == 0) {
+        int all = 1;
+        for (int q = 0; q < C; ++q) all &= *cluster.map_shared_rank(&sc.resident, q);
+        const int p = blockIdx.x / C;
+        rw.stats[2 * p] = (int)live;
+        rw.stats[2 * p + 1] = all;
+      }
+    }
+    cluster.sync();  // no block clears its marks before rank 0 has read them
+  }
+  for (int j = threadIdx.x; j < N; j += kThreads) v[j] = valid[j];
+  __syncthreads();
 }
 
 template <int R, bool BULK>
-__device__ __forceinline__ void matvec_any(Ring& rg, const __nv_bfloat16* M,
-                                           const float* ub, float* w, int N,
-                                           int c0, int width, int Wp) {
-  if constexpr (BULK) {
-    if (width > 0)
-      matvec_ring<R>(rg, ub, w, N, c0, width, Wp);
+__device__ __forceinline__ void matvec_any(cg::cluster_group& cluster, Ring& rg,
+                                           Rows& rw, Scratch& sc,
+                                           const __nv_bfloat16* M, const float* ub,
+                                           float* v, const float* valid, float* w,
+                                           int N, int c0, int width, int Wp) {
+  const bool first = rw.state == kMark;
+  if (width == 0) {
+    __syncthreads();
+  } else if (rw.state == kResident) {
+    if constexpr (BULK)
+      matvec_rows8<R>(rw, ub, w, N, width, Wp);
     else
-      __syncthreads();
+      matvec_rows1<R>(rw, ub, w, N, width, Wp);
+  } else if (first) {
+    if constexpr (BULK)
+      matvec_ring<R, true>(rg, ub, v, w, N, c0, width, Wp);
+    else
+      matvec<R, true>(M, ub, v, w, N, c0, width, Wp);
   } else {
-    matvec<R>(M, ub, w, N, c0, width, Wp);
+    if constexpr (BULK)
+      matvec_ring<R, false>(rg, ub, nullptr, w, N, c0, width, Wp);
+    else
+      matvec<R, false>(M, ub, nullptr, w, N, c0, width, Wp);
   }
+  if (first) settle<BULK>(cluster, rg, rw, sc, v, valid, M, N, c0, width, Wp);
 }
 
 template <int R, bool BULK>
@@ -406,9 +640,9 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
                      const float* __restrict__ noise,
                      float* __restrict__ u_out, float* __restrict__ d_out,
                      float* __restrict__ F_out, float* __restrict__ om_out,
-                     int N, int n, int m, int warmup, int outer, int inner,
-                     float active_eps, int T, int NS,
-                     const __grid_constant__ CUtensorMap map) {
+                     int* __restrict__ stats, int N, int n, int m, int warmup,
+                     int outer, int inner, float active_eps, int T, int NS,
+                     int area_bytes, const __grid_constant__ CUtensorMap map) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = cluster.num_blocks(), rank = cluster.block_rank();
   const int p = blockIdx.x / C;
@@ -428,13 +662,22 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
   float* red = &sc.red[0][0];  // 33 floats for roman::block_sum / block_max
   int par = 0;                 // parity of the next exchange
 
+  // the area starts at the first 128-byte aligned shared address after cs
+  // (a box's alignment; dynamic shared memory follows the static)
+  char* after = reinterpret_cast<char*>(cs + R * m);
+  char* area = after + (128 - smem_addr(after) % 128) % 128;
+  Rows rw{};
+  rw.cap = area_bytes > 16 ? (area_bytes - 16) / (4 + 2 * Wp) : 0;
+  rw.key = reinterpret_cast<int*>(area);
+  rw.val = reinterpret_cast<__nv_bfloat16*>(area + ((size_t)rw.cap * 4 + 15) / 16 * 16);
+  rw.state = kMark;
+  rw.stats = stats;
+
   const __nv_bfloat16* M = M_all + (size_t)p * N * N;
+  const float* valid_p = valid + (size_t)p * N;
   Ring rg{};
   if constexpr (BULK) {
-    // the ring starts at the first 128-byte aligned shared address after
-    // cs (a box's alignment; dynamic shared memory follows the static)
-    char* after = reinterpret_cast<char*>(cs + R * m);
-    rg.buf = reinterpret_cast<__nv_bfloat16*>(after + (128 - smem_addr(after) % 128) % 128);
+    rg.buf = reinterpret_cast<__nv_bfloat16*>(area);
     rg.full = bars;
     rg.empty = bars + kMaxStages;
     rg.T = T;
@@ -444,7 +687,8 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
     rg.nb = (Wp + rg.bc - 1) / rg.bc;
     rg.p = p;
     rg.tiles = (N + T - 1) / T;
-    rg.total = rg.tiles * (warmup + outer * (inner + 1) + 1);
+    rg.matvecs = warmup + outer * (inner + 1) + 1;
+    rg.total = rg.tiles;  // the first pass; settle decides on the rest
     if (width > 0 && threadIdx.x == 0) {
       for (int k = 0; k < NS; ++k) {
         mbar_init(&rg.full[k], 1);
@@ -457,7 +701,7 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
       for (int k = 0; k < min(NS, rg.total); ++k) ring_fill(rg, k, c0);
   }
   for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    v[j] = valid[(size_t)p * N + j];
+    v[j] = valid_p[j];
     ub[j] = v[j] + 1e-3f;
   }
   __syncthreads();
@@ -467,7 +711,7 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
   for (int it = 0; it < warmup; ++it) {
     round_bf16(u, ub, N);
     __syncthreads();
-    matvec_any<1, BULK>(rg, M, ub, w, N, c0, width, Wp);
+    matvec_any<1, BULK>(cluster, rg, rw, sc, M, ub, v, valid_p, w, N, c0, width, Wp);
     float sq[1] = {0.f};
     for (int jj = threadIdx.x; jj < width; jj += kThreads) {
       const int j = c0 + jj;
@@ -505,7 +749,7 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
     for (int it = 0; it <= steps; ++it) {
       round_bf16(u, ub, R * N);
       __syncthreads();
-      matvec_any<R, BULK>(rg, M, ub, w, N, c0, width, Wp);
+      matvec_any<R, BULK>(cluster, rg, rw, sc, M, ub, v, valid_p, w, N, c0, width, Wp);
       row_col_sums(u, rs, cs, R, n, m);
       __syncthreads();
       if (it < steps) {
@@ -587,10 +831,10 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
 
 template <int R, bool BULK>
 cudaError_t launch_bulk(const void* M, const void* valid, const void* noise,
-                       void* u, void* d, void* F, void* omega, int P, int N,
-                       int n, int m, int warmup, int outer, int inner,
-                       float active_eps, int C, int T, int NS, size_t smem,
-                       const CUtensorMap& map, cudaStream_t stream) {
+                       void* u, void* d, void* F, void* omega, void* stats, int P,
+                       int N, int n, int m, int warmup, int outer, int inner,
+                       float active_eps, int C, int T, int NS, int area,
+                       size_t smem, const CUtensorMap& map, cudaStream_t stream) {
   auto kernel = clipper_solve_kernel<R, BULK>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -614,8 +858,9 @@ cudaError_t launch_bulk(const void* M, const void* valid, const void* noise,
   if (clusters < 1) return cudaErrorInvalidConfiguration;
   return cudaLaunchKernelEx(&cfg, kernel, (const __nv_bfloat16*)M,
                             (const float*)valid, (const float*)noise, (float*)u,
-                            (float*)d, (float*)F, (float*)omega, N, n, m,
-                            warmup, outer, inner, active_eps, T, NS, map);
+                            (float*)d, (float*)F, (float*)omega, (int*)stats, N,
+                            n, m, warmup, outer, inner, active_eps, T, NS, area,
+                            map);
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
@@ -653,7 +898,7 @@ cudaError_t encode_map(CUtensorMap* map, const void* M, int P, int N, int bc,
 
 // Dynamic shared memory of a block's vectors (u and its bf16 copy, the
 // valid mask, the slice's matvec result, row and column sums): all that
-// the register-load path allocates, and what the ring is placed after.
+// the register-load path needs, and what the area is placed after.
 template <int R>
 size_t vector_bytes(int N, int n, int m, int C) {
   return sizeof(float) * ((size_t)2 * R * N + N + (size_t)R * slice_width(N, C) +
@@ -662,26 +907,27 @@ size_t vector_bytes(int N, int n, int m, int C) {
 
 // The bulk-copy ring where every row of M starts 16-byte aligned and two
 // stages fit beside the vectors; register loads, one column a thread,
-// otherwise.
+// otherwise, with whatever shared memory the card has left as the area.
 template <int R>
 cudaError_t launch(const void* M, const void* valid, const void* noise, void* u,
-                   void* d, void* F, void* omega, int P, int N, int n, int m,
-                   int warmup, int outer, int inner, float active_eps, int C,
-                   cudaStream_t stream) {
+                   void* d, void* F, void* omega, void* stats, int P, int N,
+                   int n, int m, int warmup, int outer, int inner,
+                   float active_eps, int C, cudaStream_t stream) {
   const int Wp = slice_width(N, C);
   const size_t base = vector_bytes<R>(N, n, m, C);
+  const size_t area0 = base + 128;  // room to align the area to 128 bytes
   const bool aligned = N % 8 == 0 && reinterpret_cast<uintptr_t>(M) % 16 == 0;
   const CUtensorMap none{};
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
   if (aligned && Wp / 8 <= kThreads) {
-    int dev = 0, optin = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaFuncAttributes fa;
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, clipper_solve_kernel<R, true>);
+    e = cudaFuncGetAttributes(&fa, clipper_solve_kernel<R, true>);
     if (e != cudaSuccess) return e;
-    const size_t ring0 = base + 128;  // room to align the ring to 128 bytes
-    const long left = (long)optin - (long)fa.sharedSizeBytes - (long)ring0;
+    const long left = (long)optin - (long)fa.sharedSizeBytes - (long)area0;
     const int bc = box_width(Wp), nb = (Wp + bc - 1) / bc;
     // the largest stages (up to 128 rows) of which two fit, as many of
     // them as fit up to kMaxStages: few large boxes move M fastest
@@ -694,15 +940,19 @@ cudaError_t launch(const void* M, const void* valid, const void* noise, void* u,
       CUtensorMap map;
       e = encode_map(&map, M, P, N, bc, T);
       if (e != cudaSuccess) return e;
-      return launch_bulk<R, true>(M, valid, noise, u, d, F, omega, P, N, n, m,
-                                    warmup, outer, inner, active_eps, C, T, NS,
-                                    ring0 + (size_t)NS * nb * T * bc * 2, map,
-                                    stream);
+      const int ring = NS * nb * T * bc * 2;
+      return launch_bulk<R, true>(M, valid, noise, u, d, F, omega, stats, P, N, n,
+                                  m, warmup, outer, inner, active_eps, C, T, NS,
+                                  ring, area0 + ring, map, stream);
     }
   }
-  return launch_bulk<R, false>(M, valid, noise, u, d, F, omega, P, N, n, m,
-                               warmup, outer, inner, active_eps, C, 0, 0, base,
-                               none, stream);
+  e = cudaFuncGetAttributes(&fa, clipper_solve_kernel<R, false>);
+  if (e != cudaSuccess) return e;
+  const long left = (long)optin - (long)fa.sharedSizeBytes - (long)area0;
+  const int area = left > 0 ? (int)left : 0;
+  return launch_bulk<R, false>(M, valid, noise, u, d, F, omega, stats, P, N, n, m,
+                               warmup, outer, inner, active_eps, C, 0, 0, area,
+                               area > 0 ? area0 + area : base, none, stream);
 }
 
 // What a launch of the register-load path needs: the shared memory of a
@@ -763,20 +1013,22 @@ extern "C" int clipper_solve_fits(int N, int n, int m, int R, int C,
   }
 }
 
-// C: blocks per pair (the cluster size), 1..8.
+// C: blocks per pair (the cluster size), 1..8. stats: null, or (P, 2) int32
+// that the launch fills with each pair's live rows of M (rows holding a
+// nonzero) and 1 where every block of the pair kept its rows on chip.
 extern "C" int clipper_solve_launch(const void* M, const void* valid,
                                     const void* noise, void* u, void* d,
-                                    void* F, void* omega, int P, int N, int n,
-                                    int m, int R, int warmup, int outer,
-                                    int inner, int C, float active_eps,
-                                    void* stream) {
+                                    void* F, void* omega, void* stats, int P,
+                                    int N, int n, int m, int R, int warmup,
+                                    int outer, int inner, int C,
+                                    float active_eps, void* stream) {
   if (C < 1 || C > kMaxCluster) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (R) {
-#define ROMAN_CASE(K)                                                          \
-  case K:                                                                      \
-    return (int)launch<K>(M, valid, noise, u, d, F, omega, P, N, n, m, warmup, \
-                          outer, inner, active_eps, C, s);
+#define ROMAN_CASE(K)                                                           \
+  case K:                                                                       \
+    return (int)launch<K>(M, valid, noise, u, d, F, omega, stats, P, N, n, m,   \
+                          warmup, outer, inner, active_eps, C, s);
     ROMAN_CASE(1) ROMAN_CASE(2) ROMAN_CASE(3) ROMAN_CASE(4)
     ROMAN_CASE(5) ROMAN_CASE(6) ROMAN_CASE(7) ROMAN_CASE(8)
 #undef ROMAN_CASE

@@ -15,6 +15,8 @@ events) and a Record kept in memory; counts are kept too. Not
 which a reader of the device trace counts as device work. The outermost
 span of a call is its request. ``self_ns`` and ``counter`` give totals since
 ``reset()``; a span's self time is its duration less its child spans'.
+A device count (``count_device``) keeps the tensor it is given and sums it
+only when ``counter`` is read, so it adds no wait where it is made.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ _lock = threading.Lock()  # guards the counters' read-modify-write
 _open = threading.local()  # each thread's stack of open Records
 _records: List[Record] = []
 _counters: dict = {}
+_device_counts: dict = {}  # each counter's tensors not summed yet
 
 
 class _Span:
@@ -80,6 +83,11 @@ class _Span:
         return False
 
 
+def recording() -> bool:
+    """Whether tracing is on: a profiler records."""
+    return _profiling()
+
+
 def span(name: str):
     """A context manager timing `name` while a profiler records; the
     shared no-op OFF otherwise."""
@@ -101,6 +109,15 @@ def count_sync(device: torch.device, n: int = 1) -> None:
         count("sync", n)
 
 
+def count_device(name: str, values: torch.Tensor) -> None:
+    """Add the sum of `values`, a tensor on any device, to counter `name`
+    while a profiler records. The tensor is kept, and summed when the
+    counter is read."""
+    if _profiling():
+        with _lock:
+            _device_counts.setdefault(name, []).append(values)
+
+
 def records() -> List[Record]:
     """The spans recorded since the last reset, in the order they began."""
     return list(_records)
@@ -118,8 +135,13 @@ def self_ns(name: str) -> int:
 
 
 def counter(name: str) -> int:
-    """Total of counter `name` since the last reset."""
-    return _counters.get(name, 0)
+    """Total of counter `name` since the last reset; sums its device
+    counts (a wait for their devices)."""
+    with _lock:
+        pending = _device_counts.pop(name, [])
+        if pending:
+            _counters[name] = _counters.get(name, 0) + sum(int(t.sum()) for t in pending)
+        return _counters.get(name, 0)
 
 
 def reset() -> None:
@@ -127,3 +149,4 @@ def reset() -> None:
     _records.clear()
     with _lock:
         _counters.clear()
+        _device_counts.clear()

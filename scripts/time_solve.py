@@ -16,11 +16,16 @@ terms), so two checkouts can be compared bit for bit; ``round_refine`` in
 ms on the plain solve's outputs on 32 pairs, on 3 pairs at the rescue
 budget (the rescue launch) and on 32 pairs at capacity 64, with the
 sha256 of its (sel, count) on the 32-pair chunk; ``clipper_solve``
-in ms and GB/s of M streamed (matvecs x bytes of M / time) on 32 pairs at
-the default budget, on 1 and 8 pairs, and on 8 pairs at the rescue
-budget; and PairGridRegistrar pairs/s over the 506-pair grid (best of 3)
-at chunks 32, 64 and 128. Kernel times are device times from
-torch.profiler, means of 10 launches after a warmup.
+in ms, with the live rows of each chunk's M (rows holding a nonzero: mean
+and most a pair, and their share of all rows), on 32 pairs at the default
+budget, on 1 and 8 pairs, on 8 pairs at the rescue budget, on 32 pairs of
+a dense M (uniform bf16 in (0, 1) from a fixed seed: every row live) and
+on the first 64 pairs of the benchmark's grid (``benchmark/world.py``'s
+scene, its configuration's statics), with the sha256 of its (u, d, F,
+omega) on the 32-pair chunk and on the 64 grid pairs; and
+PairGridRegistrar pairs/s over the 506-pair grid (best of 3) at chunks
+32, 64 and 128. Kernel times are device times from torch.profiler, means
+of 10 launches after a warmup.
 
 To compare two checkouts, run them in one call in turns A B B A, e.g.
 ``for d in old . . old; do (cd $d && python3 $OLDPWD/scripts/time_solve.py $d); done``.
@@ -57,6 +62,43 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     if total <= 0:
         raise RuntimeError(f"the profiler saw no kernel named like {kernel!r}")
     return total / reps / 1e3
+
+
+def grid_chunk(dev, P: int):
+    """(M, valid, capacity) of the first P pairs of the benchmark's grid,
+    built by the fused path's first two kernels. The statics are spelled
+    out as registration.solve_clipper builds them, so that older checkouts
+    run this too."""
+    import json
+
+    import torch
+
+    from benchmark import world
+    from benchmark.entries import align_common
+    from roman_tpu_torch.align import fused_register as fr
+
+    with open(os.path.join("benchmark", "configs", "roman-demo-align.json")) as f:
+        config = json.load(f)
+    subs = world.make_scene(config)
+    pi, pj = (g[:P] for g in world.full_grid(subs))
+    f1, f2 = (align_common.features(s, dev).map(lambda x, k=k: x[torch.as_tensor(k, device=dev)])
+              for s, k in zip(subs, (pi, pj)))
+    cfg = align_common.registration_config(config)
+    gravity, use_ratio, use_cosine = cfg.solve_flags
+    inv = fr.FusedInvariantStatics(
+        sigma=cfg.sigma, epsilon=cfg.epsilon, mindist=cfg.mindist,
+        cos_min=cfg.cos_min, cos_max=cfg.cos_max, eps_shape=cfg.epsilon_shape,
+        gravity=gravity, gravity_unc_ang_rad=cfg.gravity_unc_ang_rad,
+        use_ratio=use_ratio and f1.ratio_feats.shape[-1] > 0,
+        use_cosine=use_cosine and f1.descriptors.shape[-1] > 0,
+        max_clique=cfg.max_clique)
+    valid = (f1.valid[:, :, None] & f2.valid[:, None, :]).float().contiguous()
+    fl = [x.float().contiguous() for x in (f1.ratio_feats, f1.descriptors,
+                                            f2.ratio_feats, f2.descriptors)]
+    hl, nz, single, vflat = fr.assoc_terms(*fl, valid, inv)
+    M = fr.build_affinity(f1.centers.float().contiguous(), f2.centers.float().contiguous(),
+                          hl, nz, single, vflat, inv)
+    return M, vflat, f1.capacity
 
 
 def main() -> int:
@@ -128,17 +170,27 @@ def main() -> int:
             if key == "p32":
                 out["sha256_round_refine_p32"] = digest(*fr.round_refine(*r_args))
         del f1, f2, a_args, b_args, ap, bp, Mr, Mp, r_args
-    n = m = cs.CAPACITY
-    for name, P, params in (("p32", 32, ClipperSolveParams()),
-                            ("p1", 1, ClipperSolveParams()),
-                            ("p8", 8, ClipperSolveParams()),
-                            ("rescue_p8", 8, RESCUE_SOLVER)):
-        Mp, vp = M[:P].contiguous(), v_main[:P].contiguous()
-        ms = device_ms(lambda: clipper_solve(Mp, vp, n, m, params), 10,
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dense = torch.rand(M[:32].shape, generator=gen, device=dev).to(torch.bfloat16)
+    grid_M, grid_v, grid_cap = grid_chunk(dev, 64)
+    for name, Mp, vp, cap, params in (
+            ("p32", M[:32], v_main[:32], cs.CAPACITY, ClipperSolveParams()),
+            ("p1", M[:1], v_main[:1], cs.CAPACITY, ClipperSolveParams()),
+            ("p8", M[:8], v_main[:8], cs.CAPACITY, ClipperSolveParams()),
+            ("rescue_p8", M[:8], v_main[:8], cs.CAPACITY, RESCUE_SOLVER),
+            ("dense_p32", dense, v_main[:32], cs.CAPACITY, ClipperSolveParams()),
+            ("grid_p64", grid_M, grid_v, grid_cap, ClipperSolveParams())):
+        Mp, vp = Mp.contiguous(), vp.contiguous()
+        ms = device_ms(lambda: clipper_solve(Mp, vp, cap, cap, params), 10,
                        "clipper_solve_kernel")
-        passes = params.warmup_iters + params.outer_iters * (params.inner_iters + 1) + 1
-        out[name] = {"ms": ms, "GB/s": passes * Mp.numel() * 2 / ms / 1e6}
-    del M
+        live = (Mp != 0).any(dim=-1).sum(dim=-1)  # rows holding a nonzero, a pair
+        out[name] = {"ms": ms, "live_rows_mean": live.double().mean().item(),
+                     "live_rows_max": int(live.max()),
+                     "live_share": live.sum().item() / Mp.shape[0] / Mp.shape[1]}
+        if name in ("p32", "grid_p64"):
+            out[f"sha256_clipper_solve_{name}"] = digest(
+                *clipper_solve(Mp, vp, cap, cap, params))
+    del M, dense, grid_M
 
     ids = [a["seg_ids"] for a in auxs]
     gi, gj = cs.full_grid(feats)

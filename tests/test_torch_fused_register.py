@@ -100,6 +100,54 @@ def test_stage_twins_match_the_plain_invariants():
     np.testing.assert_allclose(M.float().numpy(), M_ref, atol=2.0 ** -8)
 
 
+def _grid_stages(P):
+    """(single, vflat, M) of the plain twins on the first P pairs of the
+    benchmark's grid (benchmark/world.py's scene and configuration)."""
+    import json
+    import os
+
+    from benchmark import world
+    from benchmark.entries import align_common
+    from roman_tpu_torch.align import registration
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "roman-demo-align.json")) as f:
+        config = json.load(f)
+    subs = world.make_scene(config)
+    pi, pj = (g[:P] for g in world.full_grid(subs))
+    f1, f2 = (align_common.features(s, "cpu").map(lambda x, k=k: x[k])
+              for s, k in zip(subs, (pi, pj)))
+    inv = registration.fused_statics(align_common.registration_config(config), f1)
+    valid = (f1.valid[:, :, None] & f2.valid[:, None, :]).float()
+    hl, nz, single, vflat = tfr.assoc_terms_plain(
+        f1.ratio_feats, f1.descriptors, f2.ratio_feats, f2.descriptors, valid, inv)
+    return single, vflat, tfr.build_affinity_plain(f1.centers, f2.centers, hl, nz,
+                                                   single, vflat, inv)
+
+
+@pytest.mark.parametrize("source", ["sim", "grid"])
+def test_live_rows_of_the_affinity_are_valid_with_a_single_score(source):
+    """What clipper_solve's resident rows rest on: a row of M holds a
+    nonzero only where its association is valid and its single score is
+    positive (elsewhere the affinity writes the row as zeros), so on the
+    demo's grid few rows live (on sim pairs, and on the first 4 pairs of the
+    benchmark's grid, where under 3% do)."""
+    if source == "sim":
+        _, (t1, t2) = _features(6)
+        inv = tfr.FusedInvariantStatics(**INV)
+        valid = (t1.valid[:, :, None] & t2.valid[:, None, :]).float()
+        hl, nz, single, vflat = tfr.assoc_terms_plain(
+            t1.ratio_feats, t1.descriptors, t2.ratio_feats, t2.descriptors, valid, inv)
+        M = tfr.build_affinity_plain(t1.centers, t2.centers, hl, nz, single, vflat, inv)
+    else:
+        single, vflat, M = _grid_stages(4)
+    live = (M != 0).any(dim=-1)
+    assert live.any()
+    assert not (live & ~((single > 0) & (vflat > 0))).any()
+    if source == "grid":
+        assert live.float().mean() < 0.03
+
+
 def test_cpu_wrappers_run_the_plain_twins():
     _, (t1, t2) = _features(7)
     inv = tfr.FusedInvariantStatics(**INV)

@@ -204,6 +204,152 @@ def test_clipper_solve_does_not_depend_on_the_batch(batch33):
     assert torch.equal(sel_a[0][0], sel_b[0][0]) and sel_a[1][0] == sel_b[1][0]
 
 
+def _grid_chunk(dev, P=64):
+    """(M, vflat) of the first P pairs of the benchmark's grid
+    (benchmark/world.py's scene under its configuration), by the fused
+    path's first two kernels: the sparse M of the demo's grid, where about
+    9 of 1,600 rows a pair hold a nonzero."""
+    import json
+
+    from benchmark import world as bworld
+    from benchmark.entries import align_common
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "roman-demo-align.json")) as f:
+        config = json.load(f)
+    subs = bworld.make_scene(config)
+    pi, pj = (g[:P] for g in bworld.full_grid(subs))
+    f1, f2 = (align_common.features(s, dev).map(
+        lambda x, k=k: x[torch.as_tensor(k, device=dev)].contiguous())
+        for s, k in zip(subs, (pi, pj)))
+    inv = registration.fused_statics(align_common.registration_config(config), f1)
+    valid = (f1.valid[:, :, None] & f2.valid[:, None, :]).float().contiguous()
+    hl, nz, single, vflat = fr.assoc_terms(f1.ratio_feats, f1.descriptors,
+                                           f2.ratio_feats, f2.descriptors, valid, inv)
+    return fr.build_affinity(f1.centers, f2.centers, hl, nz, single, vflat, inv), vflat
+
+
+@pytest.fixture(scope="module")
+def grid64(dev):
+    return _grid_chunk(dev)
+
+
+def _live_rows(M):
+    """Each pair's rows of M that hold a nonzero, counted on the host."""
+    return (M != 0).any(dim=-1).sum(dim=-1).cpu()
+
+
+def _counted_solve(M, vflat, n, m, params):
+    """clipper_solve under a profiler, with its counters: (outputs,
+    solve.pairs, solve.live_rows, solve.resident_pairs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from roman_tpu_torch import tracing
+
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = clipper_solve(M, vflat, n, m, params)
+    torch.cuda.synchronize()
+    counts = [tracing.counter(k) for k in ("solve.pairs", "solve.live_rows",
+                                           "solve.resident_pairs")]
+    tracing.reset()
+    return (out, *counts)
+
+
+@pytest.mark.parametrize("budget", ["r1", "r2", "r8", "rescue"])
+def test_clipper_solve_matches_plain_on_the_grid_chunk(grid64, budget):
+    """The cell's sparse chunk (64 pairs, clusters of 2): every pair keeps
+    its live rows on chip after the first pass, and the solve agrees with
+    the twin at 1, 2 and 8 restarts and at the rescue budget."""
+    M, vflat = grid64
+    params = (rescue_solver(ClipperSolveParams()) if budget == "rescue"
+              else ClipperSolveParams(n_restarts=int(budget[1:])))
+    assert cluster_size(64, 132) == 2
+    out, pairs, live, resident = _counted_solve(M, vflat, CAP, CAP, params)
+    _assert_solve_close(out, clipper_solve_plain(M, vflat, CAP, CAP, params))
+    assert (pairs, resident) == (64, 64)
+    assert live == _live_rows(M).sum().item() < 0.03 * 64 * CAP * CAP
+
+
+def _edited(grid64, case):
+    """The grid chunk with one pair edited. At 64 pairs a cluster has 2
+    blocks of 800 columns each."""
+    M, vflat = grid64[0].clone(), grid64[1].clone()
+    if case == "overflow_one_block":
+        # 400 live rows in block 0's slice: more than its area holds (at
+        # most 232,448 / (2 * 800 + 4) rows); block 1 keeps its few
+        M[0, :400, :8] = 0.25
+    elif case == "live_in_one_slice":
+        # a dead row of pair 1 gets one nonzero, in block 1's slice only
+        r = int(torch.nonzero((M[1] == 0).all(dim=-1))[0])
+        M[1, r, 1500] = 0.5
+    elif case == "all_dead":
+        M[2] = 0
+        vflat[2] = 0
+    return M, vflat
+
+
+@pytest.mark.parametrize("case", ["overflow_one_block", "live_in_one_slice", "all_dead"])
+def test_clipper_solve_resident_rows_on_edited_grid_chunks(grid64, case):
+    """A block whose live rows overflow its area streams while the other
+    block of its pair keeps its rows; a row live in one block's slice only
+    counts once for the pair; an all-dead pair gives u = 0 without NaN."""
+    M, vflat = _edited(grid64, case)
+    params = ClipperSolveParams(n_restarts=3)
+    out, pairs, live, resident = _counted_solve(M, vflat, CAP, CAP, params)
+    _assert_solve_close(out, clipper_solve_plain(M, vflat, CAP, CAP, params))
+    assert pairs == 64 and live == _live_rows(M).sum().item()
+    assert resident == (63 if case == "overflow_one_block" else 64)
+    if case == "all_dead":
+        assert (out[0][2] == 0).all() and out[2][2] == 0 and out[3][2] == 0
+
+
+@pytest.mark.parametrize("P", [1, 4])
+def test_clipper_solve_register_loads_keep_live_rows(dev, P):
+    """Rows of N = 39 * 35 are not 16-byte aligned, so the blocks load M
+    into registers; they keep their live rows too (one pair on 8 blocks,
+    as a register call runs, and four pairs), and agree with the twin."""
+    M, vflat = _prepared(dev, P=P, cap1=39, cap2=35, seed=2)
+    params = ClipperSolveParams()
+    out, pairs, live, resident = _counted_solve(M, vflat, 39, 35, params)
+    _assert_solve_close(out, clipper_solve_plain(M, vflat, 39, 35, params))
+    assert (pairs, resident) == (P, P) and live == _live_rows(M).sum().item() > 0
+
+
+def test_clipper_solve_streams_a_dense_affinity(batch33):
+    """A dense M (every row live, as the other fusions build it) takes the
+    fallback in every block and agrees with the twin."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vflat = batch33[1][:8].contiguous()
+    M = torch.rand((8, CAP * CAP, CAP * CAP), generator=gen, device="cuda")
+    M = M.to(torch.bfloat16)
+    params = ClipperSolveParams(n_restarts=2)
+    out, pairs, live, resident = _counted_solve(M, vflat, CAP, CAP, params)
+    _assert_solve_close(out, clipper_solve_plain(M, vflat, CAP, CAP, params))
+    assert (pairs, resident) == (8, 0)
+    assert live == _live_rows(M).sum().item() == 8 * CAP * CAP
+
+
+def test_clipper_solve_on_the_grid_chunk_is_deterministic_and_batch_independent(grid64):
+    """Two launches on the sparse chunk are bitwise equal; its first 40
+    pairs, solved alone at the same cluster size, are bitwise those of the
+    64; and pair 0 alone (a cluster of 8) rounds to the same selection."""
+    M, vflat = grid64
+    params = ClipperSolveParams(n_restarts=3)
+    a = clipper_solve(M, vflat, CAP, CAP, params)
+    b = clipper_solve(M, vflat, CAP, CAP, params)
+    assert cluster_size(40, 132) == cluster_size(64, 132)
+    c = clipper_solve(M[:40].contiguous(), vflat[:40].contiguous(), CAP, CAP, params)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x[:40], y) for x, y in zip(a, c))
+    alone = clipper_solve(M[:1].contiguous(), vflat[:1].contiguous(), CAP, CAP, params)
+    torch.testing.assert_close(alone[0][0], a[0][0], rtol=0, atol=2e-3)
+    sel_a = fr.round_refine(M[:1].contiguous(), alone[0], alone[2], alone[3], CAP, CAP, INV)
+    sel_b = fr.round_refine(M, a[0], a[2], a[3], CAP, CAP, INV)
+    assert torch.equal(sel_a[0][0], sel_b[0][0]) and sel_a[1][0] == sel_b[1][0]
+
+
 def test_round_refine_matches_plain(stages):
     u, _, F, omega = clipper_solve_plain(stages["M"], stages["vflat"], CAP, CAP)
     k = fr.round_refine(stages["M"], u, F, omega, CAP, CAP, INV)

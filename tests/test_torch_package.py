@@ -338,13 +338,13 @@ def test_kernel_limits_name_the_kernel_and_bound_the_largest_side(monkeypatch):
     """check_shape refuses a shape by the kernel whose limit it passes
     (round_refine's sides; clipper_solve's shared memory, here answered as
     an H100 answers it for the register-load path: 3N + N/8 + n + m floats
-    and 3,264 static bytes against 232,448), and largest_side bisects to
+    and 3,280 static bytes against 232,448), and largest_side bisects to
     the last square that passes."""
     from roman_tpu_torch.align import clipper_solve as cs_mod
 
     def fits(N, n, m, R, C, device):
         Wp = (-(-N // C) + 7) // 8 * 8
-        need = 4 * (2 * R * N + N + R * Wp + R * (n + m)) + 3264
+        need = 4 * (2 * R * N + N + R * Wp + R * (n + m)) + 3280
         return need, 232448, int(need <= 232448)
 
     monkeypatch.setattr(cs_mod, "solve_fits", fits)

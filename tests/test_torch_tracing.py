@@ -196,3 +196,41 @@ def test_self_time_counters_and_reset_on_known_records(monkeypatch):
     assert [r.request for r in recs] == [recs[0].id] * 3 + [recs[3].id]
     tracing.reset()
     assert tracing.records() == [] and tracing.counter("sync") == 0
+
+
+def test_device_counts_accumulate_only_while_a_profiler_records():
+    """count_device keeps its tensors while a profiler records and sums
+    them when the counter is read (after the stretch, so no wait inside
+    it); calls with no profiler are ignored, and reset() forgets both
+    kinds of count."""
+    tracing.reset()
+    assert not tracing.recording()
+    tracing.count_device("solve.live_rows", torch.tensor([9, 48]))
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tracing.recording()
+        stats = torch.tensor([[9, 1], [48, 1], [1600, 0]], dtype=torch.int32)
+        tracing.count("solve.pairs", 3)
+        tracing.count_device("solve.live_rows", stats[:, 0])
+        tracing.count_device("solve.resident_pairs", stats[:, 1])
+        stats[2, 1] = 1  # the sum is taken when the counter is read
+    tracing.count_device("solve.live_rows", torch.tensor([5]))
+    assert tracing.counter("solve.live_rows") == 1657
+    assert tracing.counter("solve.live_rows") == 1657  # read twice, summed once
+    assert tracing.counter("solve.resident_pairs") == 3
+    assert tracing.counter("solve.pairs") == 3 and tracing.counter("sync") == 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        tracing.count_device("solve.live_rows", torch.tensor([7]))
+        tracing.count_device("solve.resident_pairs", torch.tensor([1]))
+    assert tracing.counter("solve.live_rows") == 1664
+    tracing.reset()
+    assert tracing.counter("solve.live_rows") == 0
+    assert tracing.counter("solve.resident_pairs") == 0
+
+
+def test_the_solve_counts_nothing_on_the_cpu():
+    """The plain twin that a CPU tensor runs launches nothing, so a traced
+    grid call leaves the kernel's solve counters at zero."""
+    _profiled(_call("grid"))
+    assert tracing.records()
+    assert all(tracing.counter(name) == 0
+               for name in ("solve.pairs", "solve.live_rows", "solve.resident_pairs"))
