@@ -36,6 +36,7 @@ import math
 
 import torch
 
+from roman_tpu_torch import tracing
 from roman_tpu_torch.align import clipper
 from roman_tpu_torch.align.clipper import ClipperSolveParams
 from roman_tpu_torch.align.clipper_solve import (check_solve_shape, clipper_solve,
@@ -253,11 +254,26 @@ def build_affinity_plain(c1, c2, hl, nz, single, vflat,
     return M
 
 
+def offdiag_nonzeros(M: torch.Tensor) -> torch.Tensor:
+    """(P,) int64: each pair's nonzero entries of M (P, N, N) off its
+    diagonal."""
+    P = M.shape[0]
+    return (torch.count_nonzero(M.reshape(P, -1), dim=-1)
+            - torch.count_nonzero(torch.diagonal(M, dim1=1, dim2=2), dim=-1))
+
+
 def build_affinity(c1, c2, hl, nz, single, vflat, inv: FusedInvariantStatics):
     """The (P, N, N) bf16 affinity of every pair: the kernel for CUDA
-    tensors, the plain twin for CPU tensors (see build_affinity_plain)."""
+    tensors, the plain twin for CPU tensors (see build_affinity_plain).
+    While tracing records, it adds P to counter "affinity.pairs" and each
+    pair's nonzero entries off the diagonal to "affinity.nonzeros" (on the
+    card the kernel counts them, and the sum waits until it is read)."""
     if c1.device.type == "cpu":
-        return build_affinity_plain(c1, c2, hl, nz, single, vflat, inv)
+        M = build_affinity_plain(c1, c2, hl, nz, single, vflat, inv)
+        if tracing.recording():
+            tracing.count("affinity.pairs", M.shape[0])
+            tracing.count_device("affinity.nonzeros", offdiag_nonzeros(M))
+        return M
     P, n = c1.shape[:2]
     m = c2.shape[1]
     N = n * m
@@ -271,16 +287,24 @@ def build_affinity(c1, c2, hl, nz, single, vflat, inv: FusedInvariantStatics):
     M = torch.empty((P, N, N), dtype=torch.bfloat16, device=dev)
     if P == 0:
         return M
+    # each pair's nonzeros off the diagonal, only while tracing (the launch
+    # sets them to 0 first: a memset, no kernel)
+    counts = (torch.empty(P, dtype=torch.int32, device=dev)
+              if tracing.recording() else None)
     fn = build.function("fused_register", "build_affinity_launch",
-                        [_P] * 7 + [_I] * 5 + [_F] * 4 + [_P])
+                        [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P])
     with torch.cuda.device(dev):
         err = fn(c1.data_ptr(), c2.data_ptr(), hl.data_ptr(), nz.data_ptr(),
-                 single.data_ptr(), vflat.data_ptr(), M.data_ptr(), P, n, m,
+                 single.data_ptr(), vflat.data_ptr(), M.data_ptr(),
+                 None if counts is None else counts.data_ptr(), P, n, m,
                  inv.n_terms, int(inv.gravity), inv.sigma, inv.epsilon,
                  inv.mindist, math.sin(inv.gravity_unc_ang_rad),
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("build_affinity", err)
     build_affinity.launches += 1
+    if counts is not None:
+        tracing.count("affinity.pairs", P)
+        tracing.count_device("affinity.nonzeros", counts)
     return M
 
 

@@ -220,6 +220,7 @@ class PairGridRegistrar:
                 with tracing.span("engine.rescue"):
                     bad = np.flatnonzero(~res.converged.numpy())
                     self.rescued = int(bad.size)
+                    tracing.count("engine.rescued_pairs", self.rescued)
                     if bad.size:
                         rcfg = dataclasses.replace(self.cfg,
                                                    solver=reg.rescue_solver(self.cfg.solver))

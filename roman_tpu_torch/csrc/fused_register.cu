@@ -270,6 +270,9 @@ assoc_terms_kernel(const float* __restrict__ r1, const float* __restrict__ d1,
 //   chunk of 3 pairs still gives hundreds of blocks; a block's (row,
 //   chunk) items are dealt to its threads in turn, so only the last warp
 //   of a block can be partly idle.
+// With kCount (tracing on: the launch is given a counts buffer), each warp
+// also adds the nonzero entries off the diagonal that its threads wrote to
+// the pair's count; without it the kernel is the one that runs untraced.
 // ---------------------------------------------------------------------------
 constexpr int kBuildThreads = 256;
 constexpr int kBuildMaxRows = 16;  // b_i rows a block, at most
@@ -297,12 +300,14 @@ __device__ __forceinline__ void pair_geometry(const float* a, const float* b,
   *XY = sqrtf(dxy2 + 1e-20f);
 }
 
+template <bool kCount>
 __global__ void __launch_bounds__(kBuildThreads)
 build_affinity_kernel(const float* __restrict__ c1, const float* __restrict__ c2,
                       const float* __restrict__ hl, const float* __restrict__ nz,
                       const float* __restrict__ single,
                       const float* __restrict__ vflat,
-                      __nv_bfloat16* __restrict__ M_all, BuildParams q) {
+                      __nv_bfloat16* __restrict__ M_all, int* __restrict__ counts,
+                      BuildParams q) {
   const int n = q.n, m = q.m, N = n * m, T = q.n_terms;
   const int G = gridDim.x, g = blockIdx.x, ai = blockIdx.y, p = blockIdx.z;
   // rows b0 .. b0 + R - 1 of a_i: the first m % G groups take one row more
@@ -371,6 +376,7 @@ build_affinity_kernel(const float* __restrict__ c1, const float* __restrict__ c2
   // ---- items (row r, chunk c of 8 columns), dealt to the threads in turn ----
   const float num_comp = (float)(1 + T);
   const bool vec_store = (N % kBuildCols) == 0;
+  int nonzeros = 0;  // off the diagonal, this thread's entries (kCount)
   int r = threadIdx.x / C, c = threadIdx.x - (threadIdx.x / C) * C;
   for (int it = threadIdx.x; it < R * C; it += blockDim.x) {
     const int bi = b0 + r;
@@ -414,6 +420,7 @@ build_affinity_kernel(const float* __restrict__ c1, const float* __restrict__ c2
       }
       // the diagonal: the masked 0 plus the single score (twin: M + (s + 0 M))
       if (same_a && same_b) val = valid_r[r] ? 0.f + (sgr[r] + 0.f) : 0.f;
+      else if (kCount) nonzeros += val != 0.f;
       v[k] = val;
       if (++bj == m) { bj = 0; ++aj; }
     }
@@ -431,6 +438,10 @@ build_affinity_kernel(const float* __restrict__ c1, const float* __restrict__ c2
     }
     c += blockDim.x;
     while (c >= C) { c -= C; ++r; }
+  }
+  if constexpr (kCount) {
+    nonzeros = __reduce_add_sync(0xffffffffu, nonzeros);
+    if ((threadIdx.x & 31) == 0 && nonzeros) atomicAdd(counts + p, nonzeros);
   }
 }
 
@@ -802,20 +813,26 @@ extern "C" int assoc_terms_launch(const void* r1, const void* d1, const void* r2
   return (int)cudaGetLastError();
 }
 
+// counts: null, or (P,) int32 that the launch sets to each pair's nonzero
+// entries of M off its diagonal
 extern "C" int build_affinity_launch(const void* c1, const void* c2, const void* hl,
                                      const void* nz, const void* single,
-                                     const void* vflat, void* M, int P, int n,
-                                     int m, int n_terms, int gravity, float sigma,
-                                     float epsilon, float mindist, float sin_unc,
-                                     void* stream) {
+                                     const void* vflat, void* M, void* counts, int P,
+                                     int n, int m, int n_terms, int gravity,
+                                     float sigma, float epsilon, float mindist,
+                                     float sin_unc, void* stream) {
   BuildParams q{n, m, n_terms, gravity, sigma, epsilon, mindist, sin_unc};
   // row groups of one a_i: at most kBuildMaxRows b_i each, as even as possible
   const int G = (m + kBuildMaxRows - 1) / kBuildMaxRows;
+  if (counts) {
+    cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(int) * P, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  }
   if (n == 0 || m == 0) return 0;  // no association: nothing to write
   if (n > 32767 || m > 32767 || P > 65535)  // short chunk table; grid's z
     return (int)cudaErrorInvalidValue;
   const size_t smem = build_smem_bytes(n, m, (m + G - 1) / G, n_terms);
-  auto kernel = build_affinity_kernel;
+  auto kernel = counts ? build_affinity_kernel<true> : build_affinity_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -824,7 +841,7 @@ extern "C" int build_affinity_launch(const void* c1, const void* c2, const void*
   dim3 grid(G, n, P);
   kernel<<<grid, kBuildThreads, smem, (cudaStream_t)stream>>>(
       (const float*)c1, (const float*)c2, (const float*)hl, (const float*)nz,
-      (const float*)single, (const float*)vflat, (__nv_bfloat16*)M, q);
+      (const float*)single, (const float*)vflat, (__nv_bfloat16*)M, (int*)counts, q);
   return (int)cudaGetLastError();
 }
 

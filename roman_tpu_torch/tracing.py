@@ -14,7 +14,8 @@ events) and a Record kept in memory; counts are kept too. Not
 "gpu_user_annotation" over the span's kernels on the device's timeline,
 which a reader of the device trace counts as device work. The outermost
 span of a call is its request. ``self_ns`` and ``counter`` give totals since
-``reset()``; a span's self time is its duration less its child spans'.
+``reset()`` (``counted`` tells a counter of 0 from one never counted); a
+span's self time is its duration less its child spans'.
 A device count (``count_device``) keeps the tensor it is given and sums it
 only when ``counter`` is read, so it adds no wait where it is made.
 """
@@ -116,6 +117,13 @@ def count_device(name: str, values: torch.Tensor) -> None:
     if _profiling():
         with _lock:
             _device_counts.setdefault(name, []).append(values)
+
+
+def counted(name: str) -> bool:
+    """Whether counter `name` was counted since the last reset (by any n,
+    0 included): a counter the program has, as against one it lacks."""
+    with _lock:
+        return name in _counters or name in _device_counts
 
 
 def records() -> List[Record]:

@@ -21,6 +21,9 @@ Tolerances:
   build_affinity);
 - round_refine, the whole fused path and arithmetic-mean registration:
   selections and counts equal.
+The dense path (the benchmark's no-GPU cell: no descriptors, so nearly
+every row of M is live and clipper_solve streams M) is held to the same
+tolerances on its grid's first 64 pairs.
 """
 
 import dataclasses
@@ -348,6 +351,92 @@ def test_clipper_solve_on_the_grid_chunk_is_deterministic_and_batch_independent(
     sel_a = fr.round_refine(M[:1].contiguous(), alone[0], alone[2], alone[3], CAP, CAP, INV)
     sel_b = fr.round_refine(M, a[0], a[2], a[3], CAP, CAP, INV)
     assert torch.equal(sel_a[0][0], sel_b[0][0]) and sel_a[1][0] == sel_b[1][0]
+
+
+def _nosem_chunk(dev, P=64):
+    """(f1, f2, statics) of the first P pairs of the benchmark's no-GPU
+    cell (roman-demo-nogpu-align: method roman_no_semantics on the same
+    scene, descriptor block cut to width 0): shape ratios and gravity
+    alone, so nearly every association's row of M holds a nonzero."""
+    import dataclasses
+    import json
+
+    from benchmark import world as bworld
+    from benchmark.entries import align_common
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs",
+                           "roman-demo-nogpu-align.json")) as f:
+        config = json.load(f)
+    subs = [dataclasses.replace(s, desc=s.desc[..., :0])
+            for s in bworld.make_scene(config)]
+    pi, pj = (g[:P] for g in bworld.full_grid(subs))
+    f1, f2 = (align_common.features(s, dev).map(
+        lambda x, k=k: x[torch.as_tensor(k, device=dev)].contiguous())
+        for s, k in zip(subs, (pi, pj)))
+    return f1, f2, registration.fused_statics(align_common.registration_config(config), f1)
+
+
+@pytest.fixture(scope="module")
+def nosem64(dev):
+    return _nosem_chunk(dev)
+
+
+def test_assoc_terms_and_build_affinity_match_plain_on_the_dense_chunk(nosem64):
+    """The D = 0 path of assoc_terms (one ratio term, no cosine) and
+    build_affinity on the dense chunk, with tracing on: scores within 1e-5,
+    flags equal, M within one bf16 ulp, and the kernel's count of nonzeros
+    off the diagonal equal to the twin's M's, pair by pair in sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from roman_tpu_torch import tracing
+
+    f1, f2, inv = nosem64
+    assert f1.descriptors.shape[-1] == 0 and inv.use_ratio and not inv.use_cosine
+    valid = (f1.valid[:, :, None] & f2.valid[:, None, :]).float().contiguous()
+    args = (f1.ratio_feats, f1.descriptors, f2.ratio_feats, f2.descriptors, valid, inv)
+    hl_k, nz_k, single_k, vflat_k = fr.assoc_terms(*args)
+    hl, nz, single, vflat = fr.assoc_terms_plain(*args)
+    torch.testing.assert_close(torch.exp(2 * hl_k) * nz_k, torch.exp(2 * hl) * nz,
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(single_k, single, rtol=0, atol=1e-5)
+    assert torch.equal(nz_k, nz) and torch.equal(vflat_k, vflat)
+    build_args = (f1.centers, f2.centers, hl, nz, single, vflat, inv)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        M_k = fr.build_affinity(*build_args)
+    torch.cuda.synchronize()
+    pairs, counted = tracing.counter("affinity.pairs"), tracing.counter("affinity.nonzeros")
+    tracing.reset()
+    M_p = fr.build_affinity_plain(*build_args)
+    ulps = (M_k.view(torch.int16).int() - M_p.view(torch.int16).int()).abs()
+    assert ulps.max().item() <= 1
+    live = (M_p != 0).any(dim=-1).sum(dim=-1)
+    assert (live >= 0.95 * vflat.sum(-1)).all()  # dense: nearly every row live
+    assert pairs == 64
+    assert counted == fr.offdiag_nonzeros(M_p).sum().item() == fr.offdiag_nonzeros(M_k).sum().item()
+
+
+@pytest.mark.parametrize("budget", ["main", "rescue"])
+def test_clipper_solve_and_round_refine_match_plain_on_the_dense_chunk(nosem64, budget):
+    """The dense chunk streams M in every block (no pair keeps its rows on
+    chip), at the main and the rescue budget; the solve agrees with the
+    twin and round_refine, on the twin's solve, selects as its twin."""
+    f1, f2, inv = nosem64
+    valid = (f1.valid[:, :, None] & f2.valid[:, None, :]).float().contiguous()
+    hl, nz, single, vflat = fr.assoc_terms_plain(f1.ratio_feats, f1.descriptors,
+                                                 f2.ratio_feats, f2.descriptors, valid, inv)
+    M = fr.build_affinity_plain(f1.centers, f2.centers, hl, nz, single, vflat, inv)
+    params = (rescue_solver(ClipperSolveParams()) if budget == "rescue"
+              else ClipperSolveParams())
+    out, pairs, live, resident = _counted_solve(M, vflat, CAP, CAP, params)
+    p = clipper_solve_plain(M, vflat, CAP, CAP, params)
+    _assert_solve_close(out, p)
+    assert (pairs, resident) == (64, 0) and live == _live_rows(M).sum().item()
+    k = fr.round_refine(M, p[0], p[2], p[3], CAP, CAP, inv)
+    q = fr.round_refine_plain(M, p[0], p[2], p[3], CAP, CAP, inv)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], q[0]) and torch.equal(k[1], q[1])
 
 
 def test_round_refine_matches_plain(stages):
