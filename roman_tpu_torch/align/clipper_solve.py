@@ -24,10 +24,13 @@ launches it for CUDA tensors and runs ``clipper_solve_plain`` only for CPU
 tensors. The kernel solves each pair on a thread block cluster of
 ``cluster_size(P, SMs)`` blocks, each owning a slice of M's columns: it
 streams the slice once, and keeps the slice's rows that hold a nonzero in
-shared memory for the other matvecs where they fit (else it streams them
-all). While a profiler records (``tracing``), the launch also counts the
-pairs (``solve.pairs``), their live rows of M (``solve.live_rows``) and the
-pairs whose blocks all kept their rows (``solve.resident_pairs``).
+shared memory for the other matvecs where they fit; else, where the slice's
+nonzeros are few enough, it writes them once into a compact form in the
+launch's scratch and reads that (else it streams the slice every time).
+While a profiler records (``tracing``), the launch also counts the pairs
+(``solve.pairs``), their live rows of M (``solve.live_rows``), the pairs
+whose blocks all kept their rows (``solve.resident_pairs``) and those that
+read the compact form with no block streaming (``solve.compact_pairs``).
 """
 
 from __future__ import annotations
@@ -54,6 +57,18 @@ def cluster_size(P: int, sms: int) -> int:
     while C > 1 and P * C > sms:
         C //= 2
     return C
+
+
+def compact_words(N: int, C: int) -> int:
+    """Words (int32) of one block's region of the kernel's scratch at
+    cluster size C: csrc/clipper_solve.cu's compact_words, which the
+    launcher checks. The form's bookkeeping (counts of up to max(Wp, 4096)
+    lists, three words a column, the chunks' starts, a histogram of N + 1),
+    then up to N * Wp / 8 words of the form: a quarter of the bytes of the
+    block's slice of M, Wp columns wide."""
+    Wp = (-(-N // C) + 7) // 8 * 8
+    head = max(Wp, 8 * 512) + 3 * Wp + Wp // 32 + 2 + N + 1
+    return (head + 31) // 32 * 32 + (N * Wp // 8 + 31) // 32 * 32
 
 
 def clipper_solve_plain(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
@@ -183,17 +198,19 @@ def clipper_solve(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
     if P == 0:
         return u, d, F, omega
     C = cluster_size(P, torch.cuda.get_device_properties(dev).multi_processor_count)
-    # each pair's (live rows, every block resident), only while tracing
-    stats = (torch.empty((P, 2), dtype=torch.int32, device=dev)
+    # each pair's (live rows, every block resident, compact), only while tracing
+    stats = (torch.empty((P, 3), dtype=torch.int32, device=dev)
              if tracing.recording() else None)
+    region = compact_words(N, C)
+    scratch = torch.empty(P * C * region, dtype=torch.int32, device=dev)
     fn = build.function("clipper_solve", "clipper_solve_launch",
-                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                        + [ctypes.c_float, ctypes.c_void_p])
+                        [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(dev):
         err = fn(M.data_ptr(), valid.data_ptr(), noise.data_ptr(),
                  u.data_ptr(), d.data_ptr(), F.data_ptr(), omega.data_ptr(),
-                 None if stats is None else stats.data_ptr(),
-                 P, N, n, m, R, params.warmup_iters, params.outer_iters,
+                 None if stats is None else stats.data_ptr(), scratch.data_ptr(),
+                 region, P, N, n, m, R, params.warmup_iters, params.outer_iters,
                  params.inner_iters, C, params.active_eps,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("clipper_solve", err)
@@ -202,6 +219,7 @@ def clipper_solve(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
         tracing.count("solve.pairs", P)
         tracing.count_device("solve.live_rows", stats[:, 0])
         tracing.count_device("solve.resident_pairs", stats[:, 1])
+        tracing.count_device("solve.compact_pairs", stats[:, 2])
     return u, d, F, omega
 
 

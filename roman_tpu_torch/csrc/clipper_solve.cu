@@ -28,7 +28,8 @@
 // zero row adds nothing to a column's sum (bf16(u_i) x 0 is a zero, and a
 // zero added to a sum that starts at +0 leaves it bitwise as it was). So:
 //
-// - the first matvec streams the block's slice (below) and marks every row
+// - a first pass streams the block's slice once, before the first matvec
+//   (below; it computes a matvec that is thrown away), and marks every row
 //   that holds a nonzero in it; a row dead in this slice adds nothing to
 //   this block's columns, so no marks cross the cluster;
 // - the block then lists its marked rows in row order and copies its slice
@@ -37,14 +38,28 @@
 //   rows of its segment, in row order, and the segments are added in
 //   segment order as before. Each matvec, and so the solve, is bitwise the
 //   streamed one;
-// - a block whose marked rows do not fit (a dense M, as the other fusions
-//   build; large slices) streams its slice for every matvec, as before.
-//   What it observes in M decides; nothing else does.
+// - a block whose marked rows do not fit, but whose slice holds few
+//   nonzeros (a dense-looking M that is still mostly zeros, as the
+//   roman_no_semantics fusion builds: 3.6% of M's entries), writes them once
+//   into a compact form in its region of the launch's scratch (below) and
+//   every later matvec reads that form: 32-bit words of (M's bf16 bits, row)
+//   for each (segment, column), in row order, the segments added in segment
+//   order as before. The first pass counts each list's nonzeros as it marks;
+//   the block builds the form from a second read of its slice where the
+//   words take at most a quarter of the dense slice's bytes;
+// - a block with more (a dense M, as the other fusions build; large slices)
+//   streams its slice for every matvec, as before. What it observes in M
+//   decides; nothing else does.
 //
 // With the rows on chip a matvec is a few microseconds of arithmetic, and
 // the solve is bound by what every iteration does besides: the cluster
 // exchanges of its sums (distributed shared memory and `cluster.sync()`),
-// the row and column sums of Cb u, and the first pass's one read of M.
+// the row and column sums of Cb u, and the first pass's one read of M. The
+// compact form adds the bytes of its words a matvec, which a launch's blocks
+// read from L2 (64 pairs of the no-GPU grid: about 26 MB of its 50) and not
+// from HBM, and a second read of M a launch to build it; past those the
+// same exchanges bound it. Skipped zeros add nothing there either, and the
+// padding words are zeros, so each matvec is bitwise the streamed one too.
 //
 // Streaming: where every row of M starts 16-byte aligned and two stages fit
 // beside the vectors, one thread keeps a ring of shared-memory stages of up
@@ -54,8 +69,9 @@
 // into registers, one column a thread, and keep their rows in the shared
 // memory left after the vectors; that path takes every shape the kernel
 // takes at all, so it needs nothing more than the vectors (a block with no
-// room left streams). The resident rows keep each path's thread layout, so
-// its segments, and its sum order.
+// room left compacts or streams). The resident rows keep each path's thread
+// layout, so its segments, and its sum order; the compact form keeps its
+// segments and sum order.
 //
 // The homotopy step is elementwise on the slice. What it needs of the
 // whole pair travels through distributed shared memory: each block sends
@@ -95,8 +111,8 @@ struct Scratch {
   float xch[2][kMaxCluster][kMaxSums];       // every rank's partials, by parity
   float tot[kMaxSums];                       // the cluster-wide sums
   float d[kMaxRestarts];
-  int live[kWarps];                          // marked rows each warp counted
-  int resident;                              // this block keeps its rows
+  int live[kWarps];                          // marked rows (or words) of each warp
+  int state;                                 // this block's state after the first pass
 };
 
 // Width of a block's column slice: N / C rounded up to 8 columns.
@@ -127,7 +143,7 @@ __device__ __forceinline__ void widen8(const uint4 raw, float* m) {
 // ---- the first pass's marks ----
 //
 // The valid mask v holds 0 or 1 as floats, whose low 16 bits are zero, and
-// no matvec reads it. The first matvec marks row i live in the lowest byte
+// no matvec reads it. The first pass marks row i live in the lowest byte
 // of v[i] (any thread that reads a nonzero of the row stores the same
 // byte); once the pass is over the marks are read and v is loaded again.
 __device__ __forceinline__ void mark(float* v, int i) {
@@ -163,11 +179,13 @@ __device__ void add_segments(const float (&acc)[R][V], float* __restrict__ w,
 // thread. With fewer columns than threads the block splits the rows into
 // S = kThreads / width segments (rows i = s mod S), each summed in row
 // order, and adds the segments into w in segment order. MARK: the first
-// pass, which also marks the rows it finds a nonzero in.
+// pass, which also marks the rows it finds a nonzero in and writes the
+// nonzeros of each (segment, column) to counts[s * width + jj].
 template <int R, bool MARK>
 __device__ void matvec(const __nv_bfloat16* __restrict__ M,
                        const float* __restrict__ ub, float* __restrict__ marks,
-                       float* __restrict__ w, int N, int c0, int width, int Wp) {
+                       int* __restrict__ counts, float* __restrict__ w, int N,
+                       int c0, int width, int Wp) {
   const int S = column_segments(width);
   const int s = S == 1 ? 0 : threadIdx.x / width;
   const int j0 = S == 1 ? threadIdx.x : threadIdx.x % width;
@@ -175,6 +193,7 @@ __device__ void matvec(const __nv_bfloat16* __restrict__ M,
   for (int jj = j0; jj < width && s < S; jj += (S == 1 ? kThreads : width)) {
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r][0] = 0.f;
+    int nz = 0;
     const __nv_bfloat16* col = M + c0 + jj;
     int i = s;
     for (; i + (kUnroll - 1) * S < N; i += kUnroll * S) {
@@ -183,7 +202,10 @@ __device__ void matvec(const __nv_bfloat16* __restrict__ M,
       for (int q = 0; q < kUnroll; ++q) mb[q] = col[(size_t)(i + q * S) * N];
 #pragma unroll
       for (int q = 0; q < kUnroll; ++q) {
-        if (MARK && (__bfloat16_as_ushort(mb[q]) & 0x7FFF)) mark(marks, i + q * S);
+        if (MARK && (__bfloat16_as_ushort(mb[q]) & 0x7FFF)) {
+          mark(marks, i + q * S);
+          ++nz;
+        }
         const float mv = __bfloat162float(mb[q]);
 #pragma unroll
         for (int r = 0; r < R; ++r)
@@ -192,12 +214,16 @@ __device__ void matvec(const __nv_bfloat16* __restrict__ M,
     }
     for (; i < N; i += S) {
       const __nv_bfloat16 mb = col[(size_t)i * N];
-      if (MARK && (__bfloat16_as_ushort(mb) & 0x7FFF)) mark(marks, i);
+      if (MARK && (__bfloat16_as_ushort(mb) & 0x7FFF)) {
+        mark(marks, i);
+        ++nz;
+      }
       const float mv = __bfloat162float(mb);
 #pragma unroll
       for (int r = 0; r < R; ++r)
         acc[r][0] = __fmaf_rn(ub[r * N + i], mv, acc[r][0]);
     }
+    if (MARK) counts[s * width + jj] = nz;
     if (S == 1)
 #pragma unroll
       for (int r = 0; r < R; ++r) w[r * Wp + jj] = acc[r][0];
@@ -311,9 +337,9 @@ __device__ void scatter_u(cg::cluster_group& cluster, const float* __restrict__ 
 // column are filled with zeros and never read. Thread 0 fills; every warp
 // reports a consumed stage to its `empty` mbarrier, and thread 0 waits for
 // that before it refills the stage. Tiles are numbered over the whole
-// solve (tiles per matvec x matvecs). The ring first runs for the first
-// pass alone; a block that goes on streaming restarts it for the other
-// matvecs, and from then on it runs on into the next matvec's first rows
+// solve (tiles per pass x passes). The ring first runs for the first pass
+// alone; a block that goes on streaming restarts it for the matvecs, and
+// from then on it runs on into the next matvec's first rows
 // while the block exchanges and steps: M does not change during the solve.
 constexpr int kMaxStages = 4;
 constexpr int kMaxBox = 256;
@@ -326,7 +352,7 @@ struct Ring {
   int T, NS;               // rows a stage, stages
   int bc, nb;              // columns a box, boxes a stage
   int tiles;               // tiles a matvec: ceil(N / T)
-  int matvecs;             // matvecs of the solve
+  int matvecs;             // passes over the slice: the first pass and each matvec
   int total;               // tiles the ring runs to
   int next;                // the next tile to consume
   int p;                   // the pair
@@ -409,11 +435,13 @@ __device__ void ring_restart(Ring& rg, int c0) {
 // columns (one 16-byte shared load a row) and one of S = kThreads / G row
 // segments of the G groups of 8 columns (rows i = s mod S), each summed in
 // row order; the segments are added into w in segment order. MARK: the
-// first pass, which also marks the rows it finds a nonzero in.
+// first pass, which also marks the rows it finds a nonzero in and writes the
+// nonzeros of each (segment, column) to counts[s * width + jj].
 template <int R, bool MARK>
 __device__ void matvec_ring(Ring& rg, const float* __restrict__ ub,
-                            float* __restrict__ marks, float* __restrict__ w,
-                            int N, int c0, int width, int Wp) {
+                            float* __restrict__ marks, int* __restrict__ counts,
+                            float* __restrict__ w, int N, int c0, int width,
+                            int Wp) {
   const int G = width / 8;  // <= kThreads, checked by the launcher
   const int S = ring_segments(width);
   const int s = threadIdx.x / G, g = threadIdx.x % G;
@@ -426,6 +454,7 @@ __device__ void matvec_ring(Ring& rg, const float* __restrict__ ub,
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int v = 0; v < 8; ++v) acc[r][v] = 0.f;
+  int nz[8] = {};
   for (int t = 0; t < rg.tiles; ++t, ++rg.next) {
     const int k = rg.next, st = k % rg.NS;
     const uint32_t parity = (k / rg.NS) & 1;
@@ -436,7 +465,12 @@ __device__ void matvec_ring(Ring& rg, const float* __restrict__ ub,
       // this segment's rows of the tile: i = s mod S, in row order
       for (int i = row0 + (s - row0 % S + S) % S; i < row0 + rows; i += S) {
         const uint4 raw = *reinterpret_cast<const uint4*>(tile + (i - row0) * rg.bc);
-        if (MARK && ((raw.x | raw.y | raw.z | raw.w) & 0x7FFF7FFFu)) mark(marks, i);
+        if (MARK && ((raw.x | raw.y | raw.z | raw.w) & 0x7FFF7FFFu)) {
+          mark(marks, i);
+          const uint32_t x[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+          for (int v = 0; v < 8; ++v) nz[v] += (x[v / 2] >> (v % 2 * 16) & 0x7FFF) != 0;
+        }
         float mv[8];
         widen8(raw, mv);
 #pragma unroll
@@ -454,6 +488,9 @@ __device__ void matvec_ring(Ring& rg, const float* __restrict__ ub,
       ring_fill(rg, k + rg.NS, c0);
     }
   }
+  if (MARK && mine)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) counts[s * width + jj0 + v] = nz[v];
   add_segments<R, 8>(acc, w, s, S, mine, jj0, Wp);
 }
 
@@ -463,15 +500,78 @@ __device__ void matvec_ring(Ring& rg, const float* __restrict__ ub,
 // path has left) holds, once the first pass is over, up to cap live rows:
 // a key per row (row | segment << 16, in row order; N < 2^16, as the
 // vectors in shared memory cap it) and the row's slice, Wp bf16.
-enum { kMark, kStream, kResident };
+enum { kStream, kResident, kCompact };
+
+// ---- the compact form: the slice's nonzeros in the launch's scratch ----
+//
+// Each block has a region of the scratch (device memory; once written, a
+// launch's regions are read from L2). Column jj of the slice has a run of
+// words, one a nonzero: M's bf16 bits << 16 | row, with bit 15 set on the
+// first word of each segment (rows i = q mod S, the path's own segments),
+// the segments in order and each in row order. Rows fit 15 bits: the
+// vectors in shared memory cap N near 19,000. The columns are placed in
+// order of their nonzeros, most first (order[pos], place[jj]), and 32
+// neighbouring places form a chunk: K rows of 32 words, word k of place
+// 32c + l at start[c] + 32k + l, K the longest run of the chunk; shorter
+// runs end in zero words (row 0, +0, no flag), which add nothing to a sum.
+// So a warp reads 32 neighbouring words a row, and ordering the columns
+// keeps the padding small (4% of the words on the no-GPU grid's slices,
+// against 51% for the columns in their own order). Which lane sums a
+// column does not change its sum, so the order among equal counts (set by
+// atomics) changes nothing. A block builds the form only where its words
+// take at most a quarter of its dense slice's bytes (N * width / 8).
+constexpr int kMaxLists = 8 * kThreads;  // S * width of a ring slice, at most
+constexpr int kBatch = 16;               // words a lane has in flight
+constexpr uint32_t kSegment = 0x8000u;   // a word's flag: a segment starts
+
+struct Compact {
+  int* counts;     // nonzeros of (segment q, column jj), at q * width + jj
+  int* total;      // nonzeros of each column
+  int* place;      // each column's place
+  int* order;      // the column at each place
+  int* start;      // chunks + 1 offsets into word
+  int* hist;       // N + 1 counters of the sort
+  uint32_t* word;  // the chunks
+  int cap;         // words the block may use
+};
+
+// Words of one block's region (the wrapper allocates P * C of them and the
+// launcher checks the size it is given): the counts of as many lists as a
+// slice Wp wide can have, totals, places and order, starts and the sort's
+// histogram, then from a 128-byte boundary the words.
+__host__ __device__ inline size_t compact_lists(int Wp) {
+  return Wp > kMaxLists ? Wp : kMaxLists;
+}
+__host__ __device__ inline size_t compact_head(int N, int Wp) {
+  return (compact_lists(Wp) + 3 * (size_t)Wp + Wp / 32 + 2 + N + 1 + 31) / 32 * 32;
+}
+__host__ __device__ inline size_t compact_words(int N, int Wp) {
+  return compact_head(N, Wp) + ((size_t)N * Wp / 8 + 31) / 32 * 32;
+}
+
+// The form's arrays in a block's region, made where they are used, so that
+// only the region's address stays live through the solve.
+__device__ __forceinline__ Compact compact_at(uint32_t* own, int N, int Wp, int width) {
+  Compact cp;
+  cp.counts = reinterpret_cast<int*>(own);
+  cp.total = cp.counts + compact_lists(Wp);
+  cp.place = cp.total + Wp;
+  cp.order = cp.place + Wp;
+  cp.start = cp.order + Wp;
+  cp.hist = cp.start + Wp / 32 + 2;
+  cp.word = own + compact_head(N, Wp);
+  cp.cap = (int)((size_t)N * width / 8);
+  return cp;
+}
 
 struct Rows {
   int* key;             // cap keys
   __nv_bfloat16* val;   // cap rows of the slice
   int cap;              // rows the area holds
   int count;            // live rows of the slice
-  int state;            // kMark (before the first pass), kStream, kResident
-  int* stats;           // per pair (live rows, every block resident), or null
+  int state;            // after the first pass: kStream, kResident, kCompact
+  int* stats;           // per pair (live rows, every block resident, compact), or null
+  uint32_t* own;        // the block's region of the scratch (compact_at)
 };
 
 // The ring's matvec on the resident rows: thread (s, g) sums, in row order,
@@ -534,11 +634,207 @@ __device__ void matvec_rows1(const Rows& rw, const float* ub, float* __restrict_
     __syncthreads();
 }
 
+// The matvec on the compact form, for both paths: lane l of a warp sums
+// the column at place 32c + l, each segment in row order from +0 (a flag
+// adds the segment before into the total), the segments in segment order,
+// as the streamed matvec does; an empty segment would add +0. Warps take
+// the chunks largest and smallest together.
+template <int R>
+__device__ void matvec_compact(const Compact& cp, const float* ub,
+                               float* __restrict__ w, int N, int width, int Wp) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int chunks = (width + 31) / 32;
+  for (int round = 0; round * kWarps < chunks; ++round) {
+    const int c = round * kWarps + (round % 2 ? kWarps - 1 - wid : wid);
+    if (c >= chunks) continue;
+    const int pos = c * 32 + lane;
+    const bool on = pos < width;
+    const int a = cp.start[c], K = (cp.start[c + 1] - a) / 32;
+    const uint32_t* e = cp.word + a + lane;
+    float tot[R], acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) tot[r] = acc[r] = 0.f;
+    for (int k = 0; k < K; k += kBatch) {
+      uint32_t x[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) x[b] = on && k + b < K ? e[32 * (k + b)] : 0u;
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const bool f = x[b] & kSegment;
+        const float mv = __uint_as_float(x[b] & 0xFFFF0000u);
+        const int i = x[b] & 0x7FFF;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          tot[r] = f ? tot[r] + acc[r] : tot[r];
+          acc[r] = __fmaf_rn(ub[r * N + i], mv, f ? 0.f : acc[r]);
+        }
+      }
+    }
+    if (on) {
+      const int jj = cp.order[pos];
+#pragma unroll
+      for (int r = 0; r < R; ++r) w[r * Wp + jj] = tot[r] + acc[r];
+    }
+  }
+  __syncthreads();
+}
+
+// The exclusive prefix sum of x[0 .. n) in place (x[k] <- the sum of the x
+// before it), the threads taking runs of it in order. Returns the sum of
+// all; the same in every thread. The caller has synchronised after writing x.
+__device__ int exclusive_scan(int* x, int n, Scratch& sc) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int per = (n + kThreads - 1) / kThreads;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  int run = 0;
+  for (int k = lo; k < hi; ++k) run += x[k];
+  int incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(~0u, incl, o);
+    if (lane >= o) incl += y;
+  }
+  __syncthreads();  // the last readers of sc.live are done
+  if (lane == 31) sc.live[wid] = incl;
+  __syncthreads();
+  int at = incl - run, all = 0;
+  for (int q = 0; q < kWarps; ++q) {
+    at += q < wid ? sc.live[q] : 0;
+    all += sc.live[q];
+  }
+  for (int k = lo; k < hi; ++k) {
+    const int t = x[k];
+    x[k] = at;
+    at += t;
+  }
+  __syncthreads();
+  return all;
+}
+
+// Where the first word of (segment s, column jj) goes.
+__device__ __forceinline__ int run_start(const Compact& cp, int s, int jj, int width) {
+  const int pos = cp.place[jj];
+  int off = 0;
+  for (int q = 0; q < s; ++q) off += cp.counts[q * width + jj];
+  return cp.start[pos / 32] + pos % 32 + 32 * off;
+}
+
+// Appends the nonzeros among 8 neighbouring columns of row i (raw) to
+// their runs: the k-th of column v's segment at at[v] + 32k.
+__device__ __forceinline__ void append8(const uint4 raw, int i, uint32_t* word,
+                                        const int (&at)[8], int (&k)[8]) {
+  const uint32_t x[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const uint32_t b = x[v / 2] >> (v % 2 * 16) & 0xFFFFu;
+    if (b & 0x7FFF) {
+      word[at[v] + 32 * k[v]] = b << 16 | (k[v] == 0 ? kSegment : 0u) | (uint32_t)i;
+      ++k[v];
+    }
+  }
+}
+
+// Places the columns by the first pass's counts and, where the chunks'
+// words fit cp.cap, writes the slice's nonzeros into them from a second
+// read of the slice (8 columns a thread and 16-byte loads on the ring's
+// layout, a column a thread otherwise). Returns whether it did; the same
+// in every thread. Out of line, as the first pass is out of the solve's
+// loops: inside them, either slowed every resident iteration (by 15%
+// inlined, 3-5% as a call).
+template <bool BULK>
+__device__ __noinline__ bool build_compact(const Compact& cp, Scratch& sc,
+                                           const __nv_bfloat16* M, int N, int c0,
+                                           int width) {
+  const int S = BULK ? ring_segments(width) : column_segments(width);
+  const int chunks = (width + 31) / 32;
+  // sort the columns by their nonzeros, most first: hist[t] <- the columns
+  // with more than t, then each column takes the next place of its count
+  for (int t = threadIdx.x; t <= N; t += kThreads) cp.hist[t] = 0;
+  __syncthreads();
+  for (int jj = threadIdx.x; jj < width; jj += kThreads) {
+    int t = 0;
+    for (int q = 0; q < S; ++q) t += cp.counts[q * width + jj];
+    cp.total[jj] = t;
+    atomicAdd(&cp.hist[N - t], 1);  // hist runs from the most nonzeros down
+  }
+  __syncthreads();
+  exclusive_scan(cp.hist, N + 1, sc);
+  for (int jj = threadIdx.x; jj < width; jj += kThreads) {
+    const int pos = atomicAdd(&cp.hist[N - cp.total[jj]], 1);
+    cp.place[jj] = pos;
+    cp.order[pos] = jj;
+  }
+  __syncthreads();
+  // a chunk's rows: the run of its first place, the longest
+  for (int c = threadIdx.x; c <= chunks; c += kThreads)
+    cp.start[c] = c < chunks ? 32 * cp.total[cp.order[32 * c]] : 0;
+  __syncthreads();
+  if (exclusive_scan(cp.start, chunks + 1, sc) > cp.cap) return false;
+  if constexpr (BULK) {
+    const int G = width / 8, s = threadIdx.x / G, g = threadIdx.x % G;
+    if (s < S) {
+      int at[8], k[8] = {};
+#pragma unroll
+      for (int v = 0; v < 8; ++v) at[v] = run_start(cp, s, g * 8 + v, width);
+      const __nv_bfloat16* src = M + c0 + g * 8;
+      int i = s;
+      for (; i + (kUnroll - 1) * S < N; i += kUnroll * S) {
+        uint4 raw[kUnroll];
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q)
+          raw[q] = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(i + q * S) * N));
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) append8(raw[q], i + q * S, cp.word, at, k);
+      }
+      for (; i < N; i += S)
+        append8(__ldg(reinterpret_cast<const uint4*>(src + (size_t)i * N)), i, cp.word, at, k);
+    }
+  } else {
+    const int s = S == 1 ? 0 : threadIdx.x / width;
+    const int j0 = S == 1 ? threadIdx.x : threadIdx.x % width;
+    for (int jj = j0; jj < width && s < S; jj += (S == 1 ? kThreads : width)) {
+      uint32_t* out = cp.word + run_start(cp, s, jj, width);
+      const __nv_bfloat16* col = M + c0 + jj;
+      int k = 0;
+      int i = s;
+      for (; i + (kUnroll - 1) * S < N; i += kUnroll * S) {
+        uint32_t b[kUnroll];
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q)
+          b[q] = __bfloat16_as_ushort(col[(size_t)(i + q * S) * N]);
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q)
+          if (b[q] & 0x7FFF) {
+            out[32 * k] = b[q] << 16 | (k == 0 ? kSegment : 0u) | (uint32_t)(i + q * S);
+            ++k;
+          }
+      }
+      for (; i < N; i += S) {
+        const uint32_t b = __bfloat16_as_ushort(col[(size_t)i * N]);
+        if (b & 0x7FFF) {
+          out[32 * k] = b << 16 | (k == 0 ? kSegment : 0u) | (uint32_t)i;
+          ++k;
+        }
+      }
+    }
+  }
+  // each run's tail: zero words up to its chunk's K
+  for (int jj = threadIdx.x; jj < width; jj += kThreads) {
+    const int pos = cp.place[jj], c = pos / 32;
+    const int K = (cp.start[c + 1] - cp.start[c]) / 32;
+    for (int k = cp.total[jj]; k < K; ++k) cp.word[cp.start[c] + pos % 32 + 32 * k] = 0u;
+  }
+  __syncthreads();  // the words are in place for every thread of the block
+  return true;
+}
+
 // After the first pass: count the slice's marked rows; if they fit the
 // area, list them in row order with their segments and copy their slice of
-// M there, else stream (restarting the ring) for the rest of the solve.
-// With stats, rank 0 then writes the pair's live rows (marked in any
-// block) and whether every block keeps its rows.
+// M there; else build the compact form where it fits its words; else stream
+// (restarting the ring) for the rest of the solve. With stats, rank 0 then
+// writes the pair's live rows (marked in any block), whether every block
+// keeps its rows, and whether some block reads the compact form and none
+// streams.
 template <bool BULK>
 __device__ void settle(cg::cluster_group& cluster, Ring& rg, Rows& rw, Scratch& sc,
                        float* v, const float* valid, const __nv_bfloat16* M,
@@ -575,13 +871,15 @@ __device__ void settle(cg::cluster_group& cluster, Ring& rg, Rows& rw, Scratch& 
         rw.val[(size_t)k * Wp + jj] = src[jj];
     }
   }
-  rw.state = keep ? kResident : kStream;
+  const bool compact =
+      !keep && build_compact<BULK>(compact_at(rw.own, N, Wp, width), sc, M, N, c0, width);
+  rw.state = keep ? kResident : compact ? kCompact : kStream;
   if constexpr (BULK) {
-    if (!keep) ring_restart(rg, c0);
+    if (rw.state == kStream) ring_restart(rg, c0);
   }
   if (rw.stats) {
     const int C = cluster.num_blocks();
-    if (threadIdx.x == 0) sc.resident = keep;
+    if (threadIdx.x == 0) sc.state = rw.state;
     cluster.sync();  // every block's marks and choice are in place
     if (cluster.block_rank() == 0) {
       float live = 0.f;
@@ -592,11 +890,17 @@ __device__ void settle(cg::cluster_group& cluster, Ring& rg, Rows& rw, Scratch& 
       }
       live = roman::block_sum(live, &sc.red[0][0]);  // exact: counts below 2^24
       if (threadIdx.x == 0) {
-        int all = 1;
-        for (int q = 0; q < C; ++q) all &= *cluster.map_shared_rank(&sc.resident, q);
+        bool all_resident = true, some_compact = false, some_stream = false;
+        for (int q = 0; q < C; ++q) {
+          const int st = *cluster.map_shared_rank(&sc.state, q);
+          all_resident = all_resident && st == kResident;
+          some_compact = some_compact || st == kCompact;
+          some_stream = some_stream || st == kStream;
+        }
         const int p = blockIdx.x / C;
-        rw.stats[2 * p] = (int)live;
-        rw.stats[2 * p + 1] = all;
+        rw.stats[3 * p] = (int)live;
+        rw.stats[3 * p + 1] = all_resident;
+        rw.stats[3 * p + 2] = some_compact && !some_stream;
       }
     }
     cluster.sync();  // no block clears its marks before rank 0 has read them
@@ -606,12 +910,10 @@ __device__ void settle(cg::cluster_group& cluster, Ring& rg, Rows& rw, Scratch& 
 }
 
 template <int R, bool BULK>
-__device__ __forceinline__ void matvec_any(cg::cluster_group& cluster, Ring& rg,
-                                           Rows& rw, Scratch& sc,
+__device__ __forceinline__ void matvec_any(Ring& rg, const Rows& rw,
                                            const __nv_bfloat16* M, const float* ub,
-                                           float* v, const float* valid, float* w,
-                                           int N, int c0, int width, int Wp) {
-  const bool first = rw.state == kMark;
+                                           float* w, int N, int c0, int width,
+                                           int Wp) {
   if (width == 0) {
     __syncthreads();
   } else if (rw.state == kResident) {
@@ -619,18 +921,14 @@ __device__ __forceinline__ void matvec_any(cg::cluster_group& cluster, Ring& rg,
       matvec_rows8<R>(rw, ub, w, N, width, Wp);
     else
       matvec_rows1<R>(rw, ub, w, N, width, Wp);
-  } else if (first) {
-    if constexpr (BULK)
-      matvec_ring<R, true>(rg, ub, v, w, N, c0, width, Wp);
-    else
-      matvec<R, true>(M, ub, v, w, N, c0, width, Wp);
+  } else if (rw.state == kCompact) {
+    matvec_compact<R>(compact_at(rw.own, N, Wp, width), ub, w, N, width, Wp);
   } else {
     if constexpr (BULK)
-      matvec_ring<R, false>(rg, ub, nullptr, w, N, c0, width, Wp);
+      matvec_ring<R, false>(rg, ub, nullptr, nullptr, w, N, c0, width, Wp);
     else
-      matvec<R, false>(M, ub, nullptr, w, N, c0, width, Wp);
+      matvec<R, false>(M, ub, nullptr, nullptr, w, N, c0, width, Wp);
   }
-  if (first) settle<BULK>(cluster, rg, rw, sc, v, valid, M, N, c0, width, Wp);
 }
 
 template <int R, bool BULK>
@@ -640,9 +938,10 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
                      const float* __restrict__ noise,
                      float* __restrict__ u_out, float* __restrict__ d_out,
                      float* __restrict__ F_out, float* __restrict__ om_out,
-                     int* __restrict__ stats, int N, int n, int m, int warmup,
-                     int outer, int inner, float active_eps, int T, int NS,
-                     int area_bytes, const __grid_constant__ CUtensorMap map) {
+                     int* __restrict__ stats, uint32_t* __restrict__ scratch,
+                     size_t region, int N, int n, int m, int warmup, int outer,
+                     int inner, float active_eps, int T, int NS, int area_bytes,
+                     const __grid_constant__ CUtensorMap map) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = cluster.num_blocks(), rank = cluster.block_rank();
   const int p = blockIdx.x / C;
@@ -670,8 +969,8 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
   rw.cap = area_bytes > 16 ? (area_bytes - 16) / (4 + 2 * Wp) : 0;
   rw.key = reinterpret_cast<int*>(area);
   rw.val = reinterpret_cast<__nv_bfloat16*>(area + ((size_t)rw.cap * 4 + 15) / 16 * 16);
-  rw.state = kMark;
   rw.stats = stats;
+  rw.own = scratch + (size_t)blockIdx.x * region;
 
   const __nv_bfloat16* M = M_all + (size_t)p * N * N;
   const float* valid_p = valid + (size_t)p * N;
@@ -687,7 +986,7 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
     rg.nb = (Wp + rg.bc - 1) / rg.bc;
     rg.p = p;
     rg.tiles = (N + T - 1) / T;
-    rg.matvecs = warmup + outer * (inner + 1) + 1;
+    rg.matvecs = 1 + warmup + outer * (inner + 1) + 1;  // the first pass too
     rg.total = rg.tiles;  // the first pass; settle decides on the rest
     if (width > 0 && threadIdx.x == 0) {
       for (int k = 0; k < NS; ++k) {
@@ -707,11 +1006,23 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
   __syncthreads();
   normalize_full(ub, u, 1, N, red);
 
+  // ---- the first pass: the slice streamed once, its live rows marked and
+  // each list's nonzeros counted (the matvec of ub = valid + 1e-3 is
+  // thrown away), then how the matvecs will read it. Out of the loops, so
+  // that its code leaves their registers alone ----
+  if (width > 0) {
+    if constexpr (BULK)
+      matvec_ring<1, true>(rg, ub, v, reinterpret_cast<int*>(rw.own), w, N, c0, width, Wp);
+    else
+      matvec<1, true>(M, ub, v, reinterpret_cast<int*>(rw.own), w, N, c0, width, Wp);
+  }
+  settle<BULK>(cluster, rg, rw, sc, v, valid_p, M, N, c0, width, Wp);
+
   // ---- warmup: u <- normalize((Mu + u) * valid), restart row 0 only ----
   for (int it = 0; it < warmup; ++it) {
     round_bf16(u, ub, N);
     __syncthreads();
-    matvec_any<1, BULK>(cluster, rg, rw, sc, M, ub, v, valid_p, w, N, c0, width, Wp);
+    matvec_any<1, BULK>(rg, rw, M, ub, w, N, c0, width, Wp);
     float sq[1] = {0.f};
     for (int jj = threadIdx.x; jj < width; jj += kThreads) {
       const int j = c0 + jj;
@@ -749,7 +1060,7 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
     for (int it = 0; it <= steps; ++it) {
       round_bf16(u, ub, R * N);
       __syncthreads();
-      matvec_any<R, BULK>(cluster, rg, rw, sc, M, ub, v, valid_p, w, N, c0, width, Wp);
+      matvec_any<R, BULK>(rg, rw, M, ub, w, N, c0, width, Wp);
       row_col_sums(u, rs, cs, R, n, m);
       __syncthreads();
       if (it < steps) {
@@ -831,10 +1142,11 @@ clipper_solve_kernel(const __nv_bfloat16* __restrict__ M_all,
 
 template <int R, bool BULK>
 cudaError_t launch_bulk(const void* M, const void* valid, const void* noise,
-                       void* u, void* d, void* F, void* omega, void* stats, int P,
-                       int N, int n, int m, int warmup, int outer, int inner,
-                       float active_eps, int C, int T, int NS, int area,
-                       size_t smem, const CUtensorMap& map, cudaStream_t stream) {
+                       void* u, void* d, void* F, void* omega, void* stats,
+                       void* scratch, size_t region, int P, int N, int n, int m,
+                       int warmup, int outer, int inner, float active_eps, int C,
+                       int T, int NS, int area, size_t smem, const CUtensorMap& map,
+                       cudaStream_t stream) {
   auto kernel = clipper_solve_kernel<R, BULK>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -858,9 +1170,9 @@ cudaError_t launch_bulk(const void* M, const void* valid, const void* noise,
   if (clusters < 1) return cudaErrorInvalidConfiguration;
   return cudaLaunchKernelEx(&cfg, kernel, (const __nv_bfloat16*)M,
                             (const float*)valid, (const float*)noise, (float*)u,
-                            (float*)d, (float*)F, (float*)omega, (int*)stats, N,
-                            n, m, warmup, outer, inner, active_eps, T, NS, area,
-                            map);
+                            (float*)d, (float*)F, (float*)omega, (int*)stats,
+                            (uint32_t*)scratch, region, N, n, m, warmup, outer,
+                            inner, active_eps, T, NS, area, map);
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
@@ -910,10 +1222,12 @@ size_t vector_bytes(int N, int n, int m, int C) {
 // otherwise, with whatever shared memory the card has left as the area.
 template <int R>
 cudaError_t launch(const void* M, const void* valid, const void* noise, void* u,
-                   void* d, void* F, void* omega, void* stats, int P, int N,
-                   int n, int m, int warmup, int outer, int inner,
-                   float active_eps, int C, cudaStream_t stream) {
+                   void* d, void* F, void* omega, void* stats, void* scratch,
+                   size_t region, int P, int N, int n, int m, int warmup,
+                   int outer, int inner, float active_eps, int C,
+                   cudaStream_t stream) {
   const int Wp = slice_width(N, C);
+  if (region < compact_words(N, Wp)) return cudaErrorInvalidValue;
   const size_t base = vector_bytes<R>(N, n, m, C);
   const size_t area0 = base + 128;  // room to align the area to 128 bytes
   const bool aligned = N % 8 == 0 && reinterpret_cast<uintptr_t>(M) % 16 == 0;
@@ -941,17 +1255,19 @@ cudaError_t launch(const void* M, const void* valid, const void* noise, void* u,
       e = encode_map(&map, M, P, N, bc, T);
       if (e != cudaSuccess) return e;
       const int ring = NS * nb * T * bc * 2;
-      return launch_bulk<R, true>(M, valid, noise, u, d, F, omega, stats, P, N, n,
-                                  m, warmup, outer, inner, active_eps, C, T, NS,
-                                  ring, area0 + ring, map, stream);
+      return launch_bulk<R, true>(M, valid, noise, u, d, F, omega, stats, scratch,
+                                  region, P, N, n, m, warmup, outer, inner,
+                                  active_eps, C, T, NS, ring, area0 + ring, map,
+                                  stream);
     }
   }
   e = cudaFuncGetAttributes(&fa, clipper_solve_kernel<R, false>);
   if (e != cudaSuccess) return e;
   const long left = (long)optin - (long)fa.sharedSizeBytes - (long)area0;
   const int area = left > 0 ? (int)left : 0;
-  return launch_bulk<R, false>(M, valid, noise, u, d, F, omega, stats, P, N, n, m,
-                               warmup, outer, inner, active_eps, C, 0, 0, area,
+  return launch_bulk<R, false>(M, valid, noise, u, d, F, omega, stats, scratch,
+                               region, P, N, n, m, warmup, outer, inner,
+                               active_eps, C, 0, 0, area,
                                area > 0 ? area0 + area : base, none, stream);
 }
 
@@ -1013,22 +1329,26 @@ extern "C" int clipper_solve_fits(int N, int n, int m, int R, int C,
   }
 }
 
-// C: blocks per pair (the cluster size), 1..8. stats: null, or (P, 2) int32
+// C: blocks per pair (the cluster size), 1..8. stats: null, or (P, 3) int32
 // that the launch fills with each pair's live rows of M (rows holding a
-// nonzero) and 1 where every block of the pair kept its rows on chip.
+// nonzero), 1 where every block of the pair kept its rows on chip, and 1
+// where some block read the compact form and none streamed after the first
+// pass. scratch: P * C regions of `region` words, at least compact_words.
 extern "C" int clipper_solve_launch(const void* M, const void* valid,
                                     const void* noise, void* u, void* d,
-                                    void* F, void* omega, void* stats, int P,
+                                    void* F, void* omega, void* stats,
+                                    void* scratch, long long region, int P,
                                     int N, int n, int m, int R, int warmup,
                                     int outer, int inner, int C,
                                     float active_eps, void* stream) {
-  if (C < 1 || C > kMaxCluster) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > kMaxCluster || region < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (R) {
 #define ROMAN_CASE(K)                                                           \
   case K:                                                                       \
-    return (int)launch<K>(M, valid, noise, u, d, F, omega, stats, P, N, n, m,   \
-                          warmup, outer, inner, active_eps, C, s);
+    return (int)launch<K>(M, valid, noise, u, d, F, omega, stats, scratch,      \
+                          (size_t)region, P, N, n, m, warmup, outer, inner,     \
+                          active_eps, C, s);
     ROMAN_CASE(1) ROMAN_CASE(2) ROMAN_CASE(3) ROMAN_CASE(4)
     ROMAN_CASE(5) ROMAN_CASE(6) ROMAN_CASE(7) ROMAN_CASE(8)
 #undef ROMAN_CASE

@@ -19,10 +19,15 @@ sha256 of its (sel, count) on the 32-pair chunk; ``clipper_solve``
 in ms, with the live rows of each chunk's M (rows holding a nonzero: mean
 and most a pair, and their share of all rows), on 32 pairs at the default
 budget, on 1 and 8 pairs, on 8 pairs at the rescue budget, on 32 pairs of
-a dense M (uniform bf16 in (0, 1) from a fixed seed: every row live) and
-on the first 64 pairs of the benchmark's grid (``benchmark/world.py``'s
-scene, its configuration's statics), with the sha256 of its (u, d, F,
-omega) on the 32-pair chunk and on the 64 grid pairs; and
+a dense M (uniform bf16 in (0, 1) from a fixed seed: every row live), on
+the first 64 pairs of the benchmark's grid (``benchmark/world.py``'s
+scene, its configuration's statics) and on the first 64 pairs of its
+no-GPU grid (``roman-demo-nogpu-align``: no descriptors, so nearly every
+row of M live though 96% of its entries are zeros) at the main and the
+rescue budget, each of these two beside its bound (M's bytes read once,
+or its bf16 matvecs at the card's peak), with the sha256 of its (u, d,
+F, omega) on the 32-pair chunk, on the 64 grid pairs and on the 64
+no-GPU pairs at both budgets; and
 PairGridRegistrar pairs/s over the 506-pair grid (best of 3) at chunks
 32, 64 and 128. Kernel times are device times from torch.profiler, means
 of 10 launches after a warmup.
@@ -64,11 +69,14 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     return total / reps / 1e3
 
 
-def grid_chunk(dev, P: int):
-    """(M, valid, capacity) of the first P pairs of the benchmark's grid,
-    built by the fused path's first two kernels. The statics are spelled
-    out as registration.solve_clipper builds them, so that older checkouts
-    run this too."""
+def grid_chunk(dev, P: int, config: str = "roman-demo-align"):
+    """(M, valid, capacity) of the first P pairs of the benchmark's grid
+    under a configuration (for the no-GPU one, roman-demo-nogpu-align, the
+    descriptors cut to width 0 as its entry cuts them), built by the fused
+    path's first two kernels. The statics are spelled out as
+    registration.solve_clipper builds them, so that older checkouts run
+    this too."""
+    import dataclasses
     import json
 
     import torch
@@ -77,9 +85,11 @@ def grid_chunk(dev, P: int):
     from benchmark.entries import align_common
     from roman_tpu_torch.align import fused_register as fr
 
-    with open(os.path.join("benchmark", "configs", "roman-demo-align.json")) as f:
+    with open(os.path.join("benchmark", "configs", f"{config}.json")) as f:
         config = json.load(f)
     subs = world.make_scene(config)
+    if config["semantics_dim"] == 0:
+        subs = [dataclasses.replace(s, desc=s.desc[..., :0]) for s in subs]
     pi, pj = (g[:P] for g in world.full_grid(subs))
     f1, f2 = (align_common.features(s, dev).map(lambda x, k=k: x[torch.as_tensor(k, device=dev)])
               for s, k in zip(subs, (pi, pj)))
@@ -173,13 +183,16 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     dense = torch.rand(M[:32].shape, generator=gen, device=dev).to(torch.bfloat16)
     grid_M, grid_v, grid_cap = grid_chunk(dev, 64)
+    nosem_M, nosem_v, nosem_cap = grid_chunk(dev, 64, "roman-demo-nogpu-align")
     for name, Mp, vp, cap, params in (
             ("p32", M[:32], v_main[:32], cs.CAPACITY, ClipperSolveParams()),
             ("p1", M[:1], v_main[:1], cs.CAPACITY, ClipperSolveParams()),
             ("p8", M[:8], v_main[:8], cs.CAPACITY, ClipperSolveParams()),
             ("rescue_p8", M[:8], v_main[:8], cs.CAPACITY, RESCUE_SOLVER),
             ("dense_p32", dense, v_main[:32], cs.CAPACITY, ClipperSolveParams()),
-            ("grid_p64", grid_M, grid_v, grid_cap, ClipperSolveParams())):
+            ("grid_p64", grid_M, grid_v, grid_cap, ClipperSolveParams()),
+            ("nosem_p64", nosem_M, nosem_v, nosem_cap, ClipperSolveParams()),
+            ("rescue_nosem_p64", nosem_M, nosem_v, nosem_cap, RESCUE_SOLVER)):
         Mp, vp = Mp.contiguous(), vp.contiguous()
         ms = device_ms(lambda: clipper_solve(Mp, vp, cap, cap, params), 10,
                        "clipper_solve_kernel")
@@ -187,10 +200,16 @@ def main() -> int:
         out[name] = {"ms": ms, "live_rows_mean": live.double().mean().item(),
                      "live_rows_max": int(live.max()),
                      "live_share": live.sum().item() / Mp.shape[0] / Mp.shape[1]}
-        if name in ("p32", "grid_p64"):
+        if name.endswith("nosem_p64"):
+            matvecs = params.warmup_iters + params.outer_iters * (params.inner_iters + 1) + 1
+            N = Mp.shape[1]
+            out[name]["bound_ms"], out[name]["bound_by"] = cs.bound(
+                cs.nbytes(Mp), bf16_ops=2.0 * N * N * matvecs * Mp.shape[0])
+            out[name]["nonzero_share"] = (Mp != 0).sum().item() / Mp.numel()
+        if name in ("p32", "grid_p64", "nosem_p64", "rescue_nosem_p64"):
             out[f"sha256_clipper_solve_{name}"] = digest(
                 *clipper_solve(Mp, vp, cap, cap, params))
-    del M, dense, grid_M
+    del M, dense, grid_M, nosem_M
 
     ids = [a["seg_ids"] for a in auxs]
     gi, gj = cs.full_grid(feats)

@@ -22,8 +22,9 @@ Tolerances:
 - round_refine, the whole fused path and arithmetic-mean registration:
   selections and counts equal.
 The dense path (the benchmark's no-GPU cell: no descriptors, so nearly
-every row of M is live and clipper_solve streams M) is held to the same
-tolerances on its grid's first 64 pairs.
+every row of M is live and clipper_solve reads a compact copy of M's
+nonzeros) is held to the same tolerances on its grid's first 64 pairs; the
+compact form is bitwise the streamed solve on random sparse M.
 """
 
 import dataclasses
@@ -244,7 +245,8 @@ def _live_rows(M):
 
 def _counted_solve(M, vflat, n, m, params):
     """clipper_solve under a profiler, with its counters: (outputs,
-    solve.pairs, solve.live_rows, solve.resident_pairs)."""
+    solve.pairs, solve.live_rows, solve.resident_pairs,
+    solve.compact_pairs)."""
     from torch.profiler import ProfilerActivity, profile
 
     from roman_tpu_torch import tracing
@@ -254,7 +256,8 @@ def _counted_solve(M, vflat, n, m, params):
         out = clipper_solve(M, vflat, n, m, params)
     torch.cuda.synchronize()
     counts = [tracing.counter(k) for k in ("solve.pairs", "solve.live_rows",
-                                           "solve.resident_pairs")]
+                                           "solve.resident_pairs",
+                                           "solve.compact_pairs")]
     tracing.reset()
     return (out, *counts)
 
@@ -268,9 +271,9 @@ def test_clipper_solve_matches_plain_on_the_grid_chunk(grid64, budget):
     params = (rescue_solver(ClipperSolveParams()) if budget == "rescue"
               else ClipperSolveParams(n_restarts=int(budget[1:])))
     assert cluster_size(64, 132) == 2
-    out, pairs, live, resident = _counted_solve(M, vflat, CAP, CAP, params)
+    out, pairs, live, resident, compact = _counted_solve(M, vflat, CAP, CAP, params)
     _assert_solve_close(out, clipper_solve_plain(M, vflat, CAP, CAP, params))
-    assert (pairs, resident) == (64, 64)
+    assert (pairs, resident, compact) == (64, 64, 0)
     assert live == _live_rows(M).sum().item() < 0.03 * 64 * CAP * CAP
 
 
@@ -280,7 +283,8 @@ def _edited(grid64, case):
     M, vflat = grid64[0].clone(), grid64[1].clone()
     if case == "overflow_one_block":
         # 400 live rows in block 0's slice: more than its area holds (at
-        # most 232,448 / (2 * 800 + 4) rows); block 1 keeps its few
+        # most 232,448 / (2 * 800 + 4) rows), but few nonzeros, so it reads
+        # them from the compact form; block 1 keeps its few rows
         M[0, :400, :8] = 0.25
     elif case == "live_in_one_slice":
         # a dead row of pair 1 gets one nonzero, in block 1's slice only
@@ -294,15 +298,17 @@ def _edited(grid64, case):
 
 @pytest.mark.parametrize("case", ["overflow_one_block", "live_in_one_slice", "all_dead"])
 def test_clipper_solve_resident_rows_on_edited_grid_chunks(grid64, case):
-    """A block whose live rows overflow its area streams while the other
-    block of its pair keeps its rows; a row live in one block's slice only
-    counts once for the pair; an all-dead pair gives u = 0 without NaN."""
+    """A block whose live rows overflow its area reads its slice's
+    nonzeros from the compact form while the other block of its pair keeps
+    its rows; a row live in one block's slice only counts once for the
+    pair; an all-dead pair gives u = 0 without NaN."""
     M, vflat = _edited(grid64, case)
     params = ClipperSolveParams(n_restarts=3)
-    out, pairs, live, resident = _counted_solve(M, vflat, CAP, CAP, params)
+    out, pairs, live, resident, compact = _counted_solve(M, vflat, CAP, CAP, params)
     _assert_solve_close(out, clipper_solve_plain(M, vflat, CAP, CAP, params))
     assert pairs == 64 and live == _live_rows(M).sum().item()
-    assert resident == (63 if case == "overflow_one_block" else 64)
+    overflow = case == "overflow_one_block"
+    assert (resident, compact) == ((63, 1) if overflow else (64, 0))
     if case == "all_dead":
         assert (out[0][2] == 0).all() and out[2][2] == 0 and out[3][2] == 0
 
@@ -314,23 +320,59 @@ def test_clipper_solve_register_loads_keep_live_rows(dev, P):
     as a register call runs, and four pairs), and agree with the twin."""
     M, vflat = _prepared(dev, P=P, cap1=39, cap2=35, seed=2)
     params = ClipperSolveParams()
-    out, pairs, live, resident = _counted_solve(M, vflat, 39, 35, params)
+    out, pairs, live, resident, compact = _counted_solve(M, vflat, 39, 35, params)
     _assert_solve_close(out, clipper_solve_plain(M, vflat, 39, 35, params))
-    assert (pairs, resident) == (P, P) and live == _live_rows(M).sum().item() > 0
+    assert (pairs, resident, compact) == (P, P, 0)
+    assert live == _live_rows(M).sum().item() > 0
 
 
 def test_clipper_solve_streams_a_dense_affinity(batch33):
-    """A dense M (every row live, as the other fusions build it) takes the
-    fallback in every block and agrees with the twin."""
+    """A dense M (every row live, as the other fusions build it, and every
+    entry a nonzero) streams in every block and agrees with the twin."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     vflat = batch33[1][:8].contiguous()
     M = torch.rand((8, CAP * CAP, CAP * CAP), generator=gen, device="cuda")
     M = M.to(torch.bfloat16)
     params = ClipperSolveParams(n_restarts=2)
-    out, pairs, live, resident = _counted_solve(M, vflat, CAP, CAP, params)
+    out, pairs, live, resident, compact = _counted_solve(M, vflat, CAP, CAP, params)
     _assert_solve_close(out, clipper_solve_plain(M, vflat, CAP, CAP, params))
-    assert (pairs, resident) == (8, 0)
+    assert (pairs, resident, compact) == (8, 0, 0)
     assert live == _live_rows(M).sum().item() == 8 * CAP * CAP
+
+
+def _sparse_and_filled(dev, P, n, m, seed):
+    """A random M of P pairs of N = n * m at about 4% density, a valid
+    mask that marks every other run of 8 columns invalid, and the same M
+    with the invalid columns full of nonzeros: every block's slice then
+    holds more nonzeros than a quarter of its dense bytes allow."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    N = n * m
+    M = torch.rand((P, N, N), generator=gen, device=dev)
+    M = torch.where(torch.rand((P, N, N), generator=gen, device=dev) < 0.04, M, 0.0)
+    invalid = torch.arange(N, device=dev) // 8 % 2 == 1
+    vflat = (~invalid).float().expand(P, N).contiguous()
+    filled = M.clone()
+    filled[:, :, invalid] = 0.5 + torch.rand((P, N, int(invalid.sum())),
+                                             generator=gen, device=dev)
+    return M.to(torch.bfloat16), filled.to(torch.bfloat16), vflat
+
+
+@pytest.mark.parametrize("path", ["ring", "register_loads"])
+def test_clipper_solve_compact_form_is_bitwise_the_streamed_solve(dev, path):
+    """On the bulk ring (N = 1600) and the register-load path (N = 39 x 35),
+    64 pairs: a sparse M that every block reads from the compact form, and
+    the same M with its invalid columns filled, which every block streams.
+    An invalid column's entries reach only its own sum, which the valid mask
+    zeroes, so u, d, F and omega are bitwise equal."""
+    n, m = (CAP, CAP) if path == "ring" else (39, 35)
+    M, filled, vflat = _sparse_and_filled(dev, 64, n, m, seed=5)
+    params = ClipperSolveParams(n_restarts=2)
+    compact = _counted_solve(M, vflat, n, m, params)
+    streamed = _counted_solve(filled, vflat, n, m, params)
+    assert compact[1:] == (64, 64 * n * m, 0, 64)
+    assert streamed[1:] == (64, 64 * n * m, 0, 0)
+    assert all(torch.equal(a, b) for a, b in zip(compact[0], streamed[0]))
+    _assert_solve_close(compact[0], clipper_solve_plain(M, vflat, n, m, params))
 
 
 def test_clipper_solve_on_the_grid_chunk_is_deterministic_and_batch_independent(grid64):
@@ -419,9 +461,10 @@ def test_assoc_terms_and_build_affinity_match_plain_on_the_dense_chunk(nosem64):
 
 @pytest.mark.parametrize("budget", ["main", "rescue"])
 def test_clipper_solve_and_round_refine_match_plain_on_the_dense_chunk(nosem64, budget):
-    """The dense chunk streams M in every block (no pair keeps its rows on
-    chip), at the main and the rescue budget; the solve agrees with the
-    twin and round_refine, on the twin's solve, selects as its twin."""
+    """The dense chunk reads M's nonzeros from the compact form in every
+    block (no pair keeps its rows on chip, none streams), at the main and
+    the rescue budget; the solve agrees with the twin and round_refine, on
+    the twin's solve, selects as its twin."""
     f1, f2, inv = nosem64
     valid = (f1.valid[:, :, None] & f2.valid[:, None, :]).float().contiguous()
     hl, nz, single, vflat = fr.assoc_terms_plain(f1.ratio_feats, f1.descriptors,
@@ -429,10 +472,11 @@ def test_clipper_solve_and_round_refine_match_plain_on_the_dense_chunk(nosem64, 
     M = fr.build_affinity_plain(f1.centers, f2.centers, hl, nz, single, vflat, inv)
     params = (rescue_solver(ClipperSolveParams()) if budget == "rescue"
               else ClipperSolveParams())
-    out, pairs, live, resident = _counted_solve(M, vflat, CAP, CAP, params)
+    out, pairs, live, resident, compact = _counted_solve(M, vflat, CAP, CAP, params)
     p = clipper_solve_plain(M, vflat, CAP, CAP, params)
     _assert_solve_close(out, p)
-    assert (pairs, resident) == (64, 0) and live == _live_rows(M).sum().item()
+    assert (pairs, resident, compact) == (64, 0, 64)
+    assert live == _live_rows(M).sum().item()
     k = fr.round_refine(M, p[0], p[2], p[3], CAP, CAP, inv)
     q = fr.round_refine_plain(M, p[0], p[2], p[3], CAP, CAP, inv)
     torch.cuda.synchronize()

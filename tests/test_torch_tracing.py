@@ -233,4 +233,5 @@ def test_the_solve_counts_nothing_on_the_cpu():
     _profiled(_call("grid"))
     assert tracing.records()
     assert all(tracing.counter(name) == 0
-               for name in ("solve.pairs", "solve.live_rows", "solve.resident_pairs"))
+               for name in ("solve.pairs", "solve.live_rows", "solve.resident_pairs",
+                            "solve.compact_pairs"))
