@@ -42,6 +42,7 @@ import torch
 
 from roman_tpu_torch import tracing
 from roman_tpu_torch.align.clipper import ClipperSolveParams, restart_noise
+from roman_tpu_torch.device import to_device
 from roman_tpu_torch.kernels import build
 
 _EPS = 1e-9
@@ -189,8 +190,7 @@ def clipper_solve(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
         raise ValueError(f"n_restarts must be in [1, {MAX_RESTARTS}], got {R}")
     if dev.type == "cuda":  # a card's limit; other devices (meta) have none
         check_solve_shape(n, m, R, P, dev)
-    tracing.count_sync(dev)  # the restart noise's copy from the host
-    noise = torch.as_tensor(restart_noise(R, N), device=dev)
+    noise = to_device(restart_noise(R, N), dev)
     u = torch.empty((P, N), dtype=torch.float32, device=dev)
     d = torch.empty(P, dtype=torch.float32, device=dev)
     F = torch.empty(P, dtype=torch.float32, device=dev)

@@ -27,7 +27,6 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from roman_tpu_torch import tracing
 from roman_tpu_torch.align.invariants import SubmapFeatures
@@ -36,7 +35,7 @@ from roman_tpu_torch.align.registration import (RegistrationConfig,
                                                 get_MCA as _get_MCA_fn,
                                                 mno_clipper as _mno_clipper_fn,
                                                 register_clipper)
-from roman_tpu_torch.device import resolve_device
+from roman_tpu_torch.device import resolve_device, to_device, to_host
 from roman_tpu_torch.ops.se3_np import arun_np
 
 
@@ -70,61 +69,63 @@ def _shape_attrs(obj):
     return pca, getattr(obj, "volume", 0.0)
 
 
-def _descriptors(objs: Sequence, cap: int) -> Optional[np.ndarray]:
-    """(cap, D) unit semantic descriptors, D from the first object that has
-    one (zero rows where an object has none), or None when none has one."""
-    d0 = next((np.asarray(o.semantic_descriptor).reshape(-1) for o in objs
-               if getattr(o, "semantic_descriptor", None) is not None), None)
-    if d0 is None:
-        return None
-    out = np.zeros((cap, d0.shape[0]), np.float32)
-    for j, o in enumerate(objs[:cap]):
-        d = getattr(o, "semantic_descriptor", None)
-        if d is not None:
-            d = np.asarray(d).reshape(-1)
-            out[j] = d / max(np.linalg.norm(d), 1e-9)
-    return out
+def pack_objects(lists: Sequence[Sequence], cfg: RegistrationConfig,
+                 capacity: Optional[int] = None, desc_dim: Optional[int] = None,
+                 device=None):
+    """Pack S object lists (SegmentData or reference-like objects exposing
+    center, volume, extent, linearity/planarity/scattering or pca_attrs,
+    semantic_descriptor, id) into batched SubmapFeatures of shape
+    (S, capacity, ·) on `device` (default cuda), and their (S, capacity)
+    int64 segment ids, -1 where no object is: the feature layout of
+    ROMANRegistration._object_to_clipper_list (roman_registration.py:98-108).
+
+    capacity defaults to the longest list (at least 1); a list past it is
+    cut. desc_dim None takes D from the first object that has a descriptor
+    (0 when none has one); a descriptor row is the object's descriptor over
+    its norm, and zero where the object has none or D is 0. Each field goes
+    up in one copy."""
+    device = resolve_device(device)
+    S = len(lists)
+    cap = capacity or max(1, max(map(len, lists), default=0))
+    if desc_dim is None:
+        d0 = next((o.semantic_descriptor for objs in lists for o in objs
+                   if getattr(o, "semantic_descriptor", None) is not None), None)
+        desc_dim = 0 if d0 is None else np.asarray(d0).size
+    centers = np.zeros((S, cap, 3), np.float32)
+    pca = np.zeros((S, cap, 3), np.float32)
+    volume = np.zeros((S, cap), np.float32)
+    extent = np.zeros((S, cap, 3), np.float32)
+    desc = np.zeros((S, cap, desc_dim), np.float32)
+    valid = np.zeros((S, cap), bool)
+    seg_ids = np.full((S, cap), -1, np.int64)
+    for i, objs in enumerate(lists):
+        for j, o in enumerate(objs[:cap]):
+            centers[i, j] = _center_of(o)
+            pca[i, j], volume[i, j] = _shape_attrs(o)
+            e = getattr(o, "extent", None)
+            if e is not None:
+                extent[i, j] = np.asarray(e).reshape(3)
+            d = getattr(o, "semantic_descriptor", None)
+            if desc_dim and d is not None:
+                d = np.asarray(d).reshape(-1)
+                desc[i, j] = d / max(np.linalg.norm(d), 1e-9)
+            valid[i, j] = True
+            seg_ids[i, j] = getattr(o, "id", -1)
+    feats = build_features(to_device(centers, device), to_device(valid, device), cfg,
+                           pca_attrs=to_device(pca, device),
+                           volume=to_device(volume, device),
+                           extent=to_device(extent, device),
+                           descriptors=to_device(desc, device))
+    return feats, seg_ids
 
 
 def segments_to_features(objs: Sequence, cfg: RegistrationConfig,
                          capacity: Optional[int] = None,
                          device=None) -> SubmapFeatures:
-    """Pack one object list (SegmentData or reference-like objects exposing
-    center, volume, extent, linearity/planarity/scattering or pca_attrs,
-    semantic_descriptor) into unbatched SubmapFeatures on `device`
-    (default cuda): the feature layout of
-    ROMANRegistration._object_to_clipper_list (roman_registration.py:98-108).
-    The capacity is len(objs) unless given."""
-    device = resolve_device(device)
-    cap = capacity or max(len(objs), 1)
-    centers = np.zeros((cap, 3), np.float32)
-    pca = np.zeros((cap, 3), np.float32)
-    volume = np.zeros((cap,), np.float32)
-    extent = np.zeros((cap, 3), np.float32)
-    valid = np.zeros((cap,), bool)
-    desc = _descriptors(objs, cap)
-    if desc is None:
-        desc = np.zeros((cap, 0), np.float32)
-    for j, s in enumerate(objs[:cap]):
-        centers[j] = _center_of(s)
-        pca[j], volume[j] = _shape_attrs(s)
-        e = getattr(s, "extent", None)
-        if e is not None:
-            extent[j] = np.asarray(e).reshape(3)
-        valid[j] = True
-
-    def dev(x):
-        tracing.count_sync(device)  # a copy from host memory returns when it is done
-        return torch.as_tensor(x, device=device)
-
-    return build_features(dev(centers), dev(valid), cfg, pca_attrs=dev(pca),
-                          volume=dev(volume), extent=dev(extent),
-                          descriptors=dev(desc))
-
-
-def _host(x: torch.Tensor) -> np.ndarray:
-    tracing.count_sync(x.device)
-    return x.cpu().numpy()
+    """Pack one object list into unbatched SubmapFeatures on `device`
+    (default cuda): row 0 of pack_objects([objs]). The capacity is
+    len(objs) unless given."""
+    return pack_objects([objs], cfg, capacity, device=device)[0].map(lambda x: x[0])
 
 
 class ObjectRegistration:
@@ -141,12 +142,8 @@ class ObjectRegistration:
     def _features(self, map1, map2):
         """Both sides as SubmapFeatures on this registration's device."""
         if isinstance(map1, SubmapFeatures):
-            def up(x):
-                if x.device.type == "cpu":
-                    tracing.count_sync(self.device)
-                return x.to(self.device)
-
-            return map1.map(up), map2.map(up)
+            return (map1.map(lambda x: to_device(x, self.device)),
+                    map2.map(lambda x: to_device(x, self.device)))
         return (segments_to_features(map1, self.cfg, device=self.device),
                 segments_to_features(map2, self.cfg, device=self.device))
 
@@ -154,8 +151,7 @@ class ObjectRegistration:
     def _size(m) -> int:
         """Object count of a list or an (unbatched) SubmapFeatures."""
         if isinstance(m, SubmapFeatures):
-            tracing.count_sync(m.valid.device)
-            return int(m.valid.sum())
+            return int(to_host(m.valid.sum()))
         return len(m)
 
     def _solve(self, f1: SubmapFeatures, f2: SubmapFeatures) -> RegistrationResult:
@@ -173,7 +169,7 @@ class ObjectRegistration:
                 f1, f2 = self._features(map1, map2)
             sel = self._solve(f1, f2).sel
             with tracing.span("per_pair.home"):
-                return np.argwhere(_host(sel))
+                return np.argwhere(to_host(sel).numpy())
 
     def T_align(self, map1: List, map2: List,
                 correspondences: Optional[np.ndarray] = None) -> np.ndarray:
@@ -191,7 +187,7 @@ class ObjectRegistration:
 
         def centers(m, idx):
             if isinstance(m, SubmapFeatures):
-                return _host(m.centers)[idx]
+                return to_host(m.centers).numpy()[idx]
             return np.stack([_center_of(m[k]) for k in idx])
 
         pts1 = centers(map1, correspondences[:, 0])
@@ -206,8 +202,8 @@ class ObjectRegistration:
         M, C, A = _get_MCA_fn(f1, f2, self.cfg)
         n, m = self._size(map1), self._size(map2)
         keep = np.array([a * f2.capacity + b for a in range(n) for b in range(m)])
-        M = _host(M)[np.ix_(keep, keep)]
-        C = _host(C)[np.ix_(keep, keep)]
+        M = to_host(M).numpy()[np.ix_(keep, keep)]
+        C = to_host(C).numpy()[np.ix_(keep, keep)]
         A = np.stack([keep // f2.capacity, keep % f2.capacity], axis=-1)
         return M, C, A
 
@@ -216,4 +212,4 @@ class ObjectRegistration:
         associations, score) a solution."""
         f1, f2 = self._features(map1, map2)
         sols = _mno_clipper_fn(f1, f2, self.cfg, num_solutions=num_solutions)
-        return [(np.argwhere(_host(sel)), float(F)) for sel, _, F in sols]
+        return [(np.argwhere(to_host(sel).numpy()), float(F)) for sel, _, F in sols]

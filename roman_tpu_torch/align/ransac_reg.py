@@ -15,9 +15,10 @@ from typing import List
 import numpy as np
 
 from roman_tpu_torch.align.object_registration import (  # noqa: F401 (roman_tpu's names)
-    ObjectRegistration, _host, segments_to_features)
+    ObjectRegistration, segments_to_features)
 from roman_tpu_torch.align.registration import (RegistrationConfig,
                                                 ransac_draws, register_ransac)
+from roman_tpu_torch.device import to_host
 
 
 class RansacReg(ObjectRegistration):
@@ -35,4 +36,4 @@ class RansacReg(ObjectRegistration):
         draws = ransac_draws(seed, 1, self.cfg.ransac_iter)[0]
         res = register_ransac(f1, f2, self.cfg, draws,
                               max_corr_dist=self.cfg.epsilon)
-        return np.argwhere(_host(res.sel))
+        return np.argwhere(to_host(res.sel).numpy())

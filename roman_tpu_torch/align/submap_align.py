@@ -34,6 +34,7 @@ from roman_tpu_torch.align.invariants import SubmapFeatures
 from roman_tpu_torch.align.registration import RegistrationConfig, RegistrationResult
 from roman_tpu_torch.align.results import SubmapAlignResults, save_submap_align_results
 from roman_tpu_torch.data.pose_data import PoseData
+from roman_tpu_torch.device import to_device, to_host
 from roman_tpu_torch.map.roman_map import (
     RomanMap,
     Submap,
@@ -50,12 +51,6 @@ from roman_tpu_torch.params.submap_align_params import (
     SubmapAlignParams,
 )
 from roman_tpu_torch.utils import aabb_intersects, expandvars_recursive
-
-
-def _to_host(x: torch.Tensor) -> torch.Tensor:
-    """x.cpu(), counting the host's wait where x is on a card."""
-    tracing.count_sync(x.device)
-    return x.cpu()
 
 
 class PairGridRegistrar:
@@ -147,12 +142,8 @@ class PairGridRegistrar:
         # launch: a pageable copy returns only when it is done, so a copy a
         # chunk would hold the other devices back
         with tracing.span("engine.stage"):
-            for rows, dev in zip(own, mesh.devices):
-                if len(rows):  # a copy of nothing does not wait
-                    tracing.count_sync(dev, 2 if draws is None else 3)
-            up = [(torch.as_tensor(pair_i[rows], device=dev),
-                   torch.as_tensor(pair_j[rows], device=dev),
-                   None if draws is None else draws[torch.as_tensor(rows)].to(dev))
+            up = [(to_device(pair_i[rows], dev), to_device(pair_j[rows], dev),
+                   None if draws is None else to_device(draws[torch.as_tensor(rows)], dev))
                   for rows, dev in zip(own, mesh.devices)]
         parts = [[] for _ in range(n)]
 
@@ -181,7 +172,7 @@ class PairGridRegistrar:
         def home(name):
             if name == "u" or getattr(parts[0][0], name) is None:
                 return None
-            x = torch.cat([_to_host(torch.cat([getattr(r, name) for r in p]))
+            x = torch.cat([to_host(torch.cat([getattr(r, name) for r in p]))
                            for p in parts if p])
             out = torch.empty_like(x)
             out[order] = x

@@ -25,11 +25,10 @@ import pickle
 from typing import List, Optional
 
 import numpy as np
-import torch
 
-from roman_tpu_torch.align.registration import RegistrationConfig, build_features
+from roman_tpu_torch.align.object_registration import pack_objects
+from roman_tpu_torch.align.registration import RegistrationConfig
 from roman_tpu_torch.data.pose_data import PoseData
-from roman_tpu_torch.device import resolve_device
 from roman_tpu_torch.ops import se3_np
 
 
@@ -414,53 +413,15 @@ def submaps_to_features(
     desc_dim: Optional[int] = None, device=None,
 ):
     """Pack a robot's submaps into one batched SubmapFeatures on `device`
-    (default cuda; see device.resolve_device) + host aux arrays.
+    (default cuda; see device.resolve_device) + host aux arrays: each
+    submap's segments through ``align.object_registration.pack_objects``.
 
     Returns (features, aux) where aux holds per-submap poses/times/segment
     ids needed by submap alignment and the result writers.
     """
-    device = resolve_device(device)
     S = len(submaps)
-    cap = capacity or max((len(sm) for sm in submaps), default=1)
-    if desc_dim is None:
-        desc_dim = 0
-        for sm in submaps:
-            for s in sm.segments:
-                if s.semantic_descriptor is not None:
-                    desc_dim = len(np.asarray(s.semantic_descriptor).reshape(-1))
-                    break
-            if desc_dim:
-                break
-
-    centers = np.zeros((S, cap, 3), np.float32)
-    pca = np.zeros((S, cap, 3), np.float32)
-    volume = np.zeros((S, cap), np.float32)
-    extent = np.zeros((S, cap, 3), np.float32)
-    desc = np.zeros((S, cap, desc_dim), np.float32)
-    valid = np.zeros((S, cap), bool)
-    seg_ids = np.full((S, cap), -1, np.int64)
-
-    for i, sm in enumerate(submaps):
-        n = min(len(sm.segments), cap)
-        for j, s in enumerate(sm.segments[:n]):
-            centers[i, j] = np.asarray(s.center).reshape(3)
-            pca[i, j] = s.pca_attrs
-            volume[i, j] = s.volume
-            if s.extent is not None:
-                extent[i, j] = np.asarray(s.extent).reshape(3)
-            if desc_dim and s.semantic_descriptor is not None:
-                d = np.asarray(s.semantic_descriptor).reshape(-1)
-                desc[i, j] = d / max(np.linalg.norm(d), 1e-9)
-            valid[i, j] = True
-            seg_ids[i, j] = s.id
-
-    def dev(x):
-        return torch.as_tensor(x, device=device)
-
-    feats = build_features(
-        dev(centers), dev(valid), cfg, pca_attrs=dev(pca), volume=dev(volume),
-        extent=dev(extent), descriptors=dev(desc),
-    )
+    feats, seg_ids = pack_objects([sm.segments for sm in submaps], cfg, capacity,
+                                  desc_dim, device)
     aux = dict(
         times=np.array([sm.time for sm in submaps]),
         poses_flu=np.stack([sm.pose_flu for sm in submaps]) if S else np.zeros((0, 4, 4)),

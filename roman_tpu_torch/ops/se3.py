@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from roman_tpu_torch import tracing
+from roman_tpu_torch.device import to_device
 
 _EPS = 1e-12
 
@@ -60,9 +60,8 @@ def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    tracing.count_sync(top.device)  # the bottom row's copy from the host
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                          device=top.device).expand(batch + (1, 4))
+    bottom = to_device(torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype),
+                       top.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

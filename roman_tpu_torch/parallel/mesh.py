@@ -23,8 +23,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from roman_tpu_torch import tracing
-from roman_tpu_torch.device import resolve_device
+from roman_tpu_torch.device import resolve_device, to_device
 
 
 def _canonical(device) -> torch.device:
@@ -140,7 +139,7 @@ def shard_pairs(tree, mesh: Mesh) -> list:
     if len(sizes) > 1:
         raise ValueError(f"the tree's leading axes differ: {sorted(sizes)}")
     P = sizes.pop() if sizes else 0
-    return [_tree_map(lambda x, s=s, d=d: torch.as_tensor(x[s], device=d), tree)
+    return [_tree_map(lambda x, s=s, d=d: to_device(x[s], d), tree)
             for s, d in zip(pair_slices(P, mesh.size), mesh.devices)]
 
 
@@ -150,13 +149,5 @@ def replicated(tree, mesh: Mesh) -> list:
     copies = {}
     for d in mesh.devices:
         if d not in copies:
-            copies[d] = _tree_map(lambda x, d=d: _copy_to(x, d), tree)
+            copies[d] = _tree_map(lambda x, d=d: to_device(x, d), tree)
     return [copies[d] for d in mesh.devices]
-
-
-def _copy_to(x, device: torch.device) -> torch.Tensor:
-    """torch.as_tensor(x, device=device), counting the host's wait where a
-    host array goes to a card (a pageable copy returns when it is done)."""
-    if (isinstance(x, np.ndarray) or x.device.type == "cpu") and x.nbytes:
-        tracing.count_sync(device)
-    return torch.as_tensor(x, device=device)

@@ -5,6 +5,9 @@ on exactly while a torch.profiler session records.
         tracing.count_sync(x.device)   # the host is about to wait for x's card
         x = x.cpu()
 
+The port's copies between host memory and a card count their waits in
+``device.to_device`` and ``device.to_host``; count_sync is for the others.
+
 With no profiler recording, span() returns the shared no-op OFF and a count
 returns at once: one check of the profiler's state each. While one records,
 a span is an op-scope event of the profiler's own trace (on the clock of

@@ -6,8 +6,12 @@ DistRegWithPruning (with its gravity check) and RansacReg on a rigid
 the SubmapFeatures input, empty maps and too few associations. Limits:
 associations equal, T_align within 1e-4, get_MCA's M and C within 1e-6
 and A equal; RANSAC, whose draws differ by design, on outcomes. roman_tpu
-runs at two shapes, 6 x 6 and 7 x 13.
+runs at two shapes, 6 x 6 and 7 x 13. The one packer from objects to
+features against roman_tpu's two (the grid's and the per-pair one),
+tensor for tensor.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -17,12 +21,16 @@ from roman_tpu.align import dist_reg_with_pruning as j_prune
 from roman_tpu.align import object_registration as j_obj
 from roman_tpu.align import ransac_reg as j_ransac
 from roman_tpu.align import roman_registration as j_roman
+from roman_tpu.align.registration import RegistrationConfig as JConfig
+from roman_tpu.map import roman_map as j_map
 from roman_tpu.map.roman_map import SegmentData as JSegment
+from roman_tpu.sim import world as j_world
 from roman_tpu_torch.align import dist_reg_with_pruning as t_prune
 from roman_tpu_torch.align import object_registration as t_obj
 from roman_tpu_torch.align import ransac_reg as t_ransac
 from roman_tpu_torch.align import roman_registration as t_roman
 from roman_tpu_torch.align.registration import RegistrationConfig, build_features
+from roman_tpu_torch.map import roman_map as t_map
 from roman_tpu_torch.map.roman_map import SegmentData as TSegment
 
 torch.set_num_threads(1)
@@ -241,3 +249,68 @@ def test_prune_and_ransac_take_features_input(pair):
                                          device="cpu") for s in (t1, t2))
     with pytest.raises(ValueError, match="its own cfg"):
         prune.register(f1, f2)
+
+
+@pytest.fixture(scope="module")
+def submaps(tmp_path_factory):
+    """roman_tpu's and the port's submaps of one robot of a small sim world
+    (32-d descriptors, at most 20 objects a submap), the port's from
+    roman_tpu's map pickle."""
+    _, runs = j_world.make_multi_robot_world(
+        np.random.default_rng(7), n_robots=1, n_objects=150, area=(40.0, 40.0, 4.0),
+        traj_len=40.0, desc_dim=32)
+    path = str(tmp_path_factory.mktemp("pack") / "robot0.pkl")
+    j_world.roman_map_from_run(runs[0]).save(path)
+    kw = dict(max_size=20, radius=12.0, distance=10.0)
+    return (j_map.submaps_from_roman_map(j_map.load_roman_map(path), j_map.SubmapParams(**kw)),
+            t_map.submaps_from_roman_map(t_map.load_roman_map(path), t_map.SubmapParams(**kw)))
+
+
+def _reference_like(seed=5):
+    """Seven objects as the reference's minimal segments: linearity,
+    planarity and scattering, extent None but on one, the first without a
+    descriptor, and no id."""
+    rng = np.random.default_rng(seed)
+    objs = [types.SimpleNamespace(
+        center=rng.uniform(-5, 5, 3), volume=float(rng.uniform(0.5, 3.0)),
+        linearity=float(rng.uniform()), planarity=float(rng.uniform()),
+        scattering=float(rng.uniform()), extent=None,
+        semantic_descriptor=rng.normal(size=16)) for _ in range(7)]
+    objs[0].semantic_descriptor = None
+    objs[3].extent = rng.uniform(0.2, 2.0, 3)
+    return objs
+
+
+def _same_features(got, ref):
+    for name in ("centers", "ratio_feats", "descriptors", "valid"):
+        a, b = getattr(got, name).numpy(), np.asarray(getattr(ref, name))
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize("method", ["roman", "sevg"])
+@pytest.mark.parametrize("objects", ["submaps", "reference_like"])
+def test_the_one_packer_matches_roman_tpus_two(objects, method, submaps):
+    """submaps_to_features on a sim world's submaps (at capacity 20 and 32-d,
+    and at the defaults) and segments_to_features on reference-like objects
+    (at a capacity above their count, and at the default) pack what
+    roman_tpu's do; a submap packed alone is its row of the grid's pack."""
+    cfg, jcfg = RegistrationConfig(method=method), JConfig(method=method)
+    if objects == "reference_like":
+        objs = _reference_like()
+        for cap in (10, None):
+            got = t_obj.segments_to_features(objs, cfg, capacity=cap, device="cpu")
+            _same_features(got, j_obj.segments_to_features(objs, jcfg, capacity=cap))
+            assert got.capacity == (cap or 7) and got.descriptors.shape[-1] == 16
+        return
+    jsm, tsm = submaps
+    assert len(tsm) >= 3 and max(map(len, tsm)) == 20
+    for kw in ({}, dict(capacity=20, desc_dim=32)):
+        f, aux = t_map.submaps_to_features(tsm, cfg, device="cpu", **kw)
+        jf, jaux = j_map.submaps_to_features(jsm, jcfg, **kw)
+        _same_features(f, jf)
+        for key in ("times", "poses_flu", "poses_gravity", "positions", "seg_ids"):
+            np.testing.assert_array_equal(aux[key], jaux[key], err_msg=key)
+    for k, sm in enumerate(tsm):  # f: the pack at capacity 20
+        _same_features(t_obj.segments_to_features(sm.segments, cfg, capacity=20, device="cpu"),
+                       f.map(lambda x: x[k]))

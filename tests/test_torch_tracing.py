@@ -16,7 +16,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from roman_tpu_torch import tracing
+from roman_tpu_torch import device, tracing
 from roman_tpu_torch.align.clipper import ClipperSolveParams
 from roman_tpu_torch.align.registration import RegistrationConfig
 from roman_tpu_torch.align.roman_registration import ROMANParams, ROMANRegistration
@@ -196,6 +196,28 @@ def test_self_time_counters_and_reset_on_known_records(monkeypatch):
     assert [r.request for r in recs] == [recs[0].id] * 3 + [recs[3].id]
     tracing.reset()
     assert tracing.records() == [] and tracing.counter("sync") == 0
+
+
+def test_copies_across_the_host_boundary_count_their_waits(monkeypatch):
+    """device.to_device hands tracing.count_sync the device a copy from
+    host memory goes to ("meta" stands in for a card here), once a copy;
+    a copy of nothing and a tensor already there count nothing.
+    device.to_host of a tensor in host memory counts no wait."""
+    seen = []
+    monkeypatch.setattr(tracing, "count_sync", lambda dev, n=1: seen.append((dev.type, n)))
+    meta = torch.device("meta")
+    x = device.to_device(np.ones(3, np.float32), meta)
+    assert x.device == meta and seen == [("meta", 1)]
+    assert device.to_device(torch.ones(2), "meta").device == meta
+    assert device.to_device(np.zeros((4, 0)), meta).shape == (4, 0)
+    assert device.to_device(x, meta) is x
+    assert seen == [("meta", 1)] * 2
+    monkeypatch.undo()
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        y = torch.arange(4)
+        assert device.to_host(y).equal(y) and device.to_device(y, CPU) is y
+    assert tracing.counted("sync") is False and tracing.counter("sync") == 0
 
 
 def test_device_counts_accumulate_only_while_a_profiler_records():
