@@ -14,12 +14,14 @@ N = 1600 candidate associations each), and then:
 
 1. prints the card, its power limit and the build (registers, shared
    memory and spills of every kernel);
-2. holds each of the four kernels against its plain PyTorch twin on the
-   card, on 32 pairs (the chunk the main path registers at once), and
+2. holds each of the five kernels against its plain PyTorch twin on the
+   card, on 32 pairs (the chunk the main path registers at once; arun_align
+   on the fused path's selections of 64, the benchmark grid's chunk), and
    times both: a call of the kernel's wrapper and of the twin with CUDA
    events (``ms``), and the kernel's own device time from torch.profiler
    (``device_ms``, without the host's work between short launches);
-   prints the ptxas lines of assoc_terms, build_affinity and round_refine,
+   prints the ptxas lines of assoc_terms, build_affinity, round_refine and
+   arun_align,
    a yardstick beside assoc_terms (one f32 torch.bmm of the descriptors,
    TF32 off), C and K per pair beside round_refine (entries above the
    rounding's cut, entries it selects), and the bf16 ulp histogram of
@@ -64,7 +66,7 @@ N = 1600 candidate associations each), and then:
    params/demo_sim_device: both robots mapped on the device backend,
    submap_align on the three robot pairs, the sparse robust solve on the
    card and the ATE, with the stage wall times, every launch count set to
-   0 just before the call and read just after (all four kernels must
+   0 just before the call and read just after (all five kernels must
    launch), the output tree of tests/test_e2e_demo.py and the gates of
    tests/test_e2e_demo_device.py (>= 8 loop closures, ATE < 1.0 m); then
    the host backend on robot0's first 300 frames against the device
@@ -88,13 +90,13 @@ N = 1600 candidate associations each), and then:
    T_postmultiply) and runs the demo CLI on them a stage at a time, with
    params/demo's nets at full width (seeded random weights), the device
    mapper and 768-d semantics: every artifact, each map's trajectory equal
-   to the odometry times the extrinsic within 1e-6, all four kernels
+   to the odometry times the extrinsic within 1e-6, all five kernels
    launched in stage 2, frames/s of mapping and each stage's wall time;
 14. drives the reference's per-pair surface on phase 3's tree:
    ROMANRegistration (the grid's configuration, 768-d) and
    DistRegWithPruning on the first 64 submap pairs at their unpadded
    sizes, on the card and on the CPU (associations equal, T_align within
-   1e-4, all four kernels launched, ms a register call beside the grid's
+   1e-4, all five kernels launched, ms a register call beside the grid's
    time a pair); a shape sweep (1x1, 1x40, 7x13, 40x40 with 768-d
    descriptors and with none, 100x100) and the largest square the kernels
    take (at a 4-matvec solve budget) against the CPU, and the shapes just
@@ -103,7 +105,7 @@ N = 1600 candidate associations each), and then:
    (in-process) on the first two robots of phase 10's demo run, whose EDGE
    lines must equal that run's align stage for the pair (both at
    submap_align's default chunk: the card's sums depend on the chunk),
-   all four kernels launched; the viz CLIs as
+   all five kernels launched; the viz CLIs as
    processes, which without matplotlib (or cv2) must exit non-zero with an
    ImportError naming it and write nothing, and with it write their files;
 15. splits the 506-pair grid over a mesh (parallel.mesh): get_mesh(), the
@@ -115,7 +117,7 @@ N = 1600 candidate associations each), and then:
    the card); then dryrun_multichip(1) and dryrun_multichip(4,
    device="cuda:0") (the grid at flagship shapes, a BatchMapper frame a
    robot, a GN step with its edges split), every launch count set to 0
-   just before and read just after (all four kernels must launch); and
+   just before and read just after (all five kernels must launch); and
    the port's native referee (g++, into build/): the serial C++ CLIPPER
    solve on the first 8 bench pairs, its pairs/s and its LC agreement
    with the kernels (a record);
@@ -124,7 +126,7 @@ N = 1600 candidate associations each), and then:
    0.6 and 1.0 m, yaw 180 degrees, 50% duplicates, a symmetric layout, low
    overlap) of 24 positive and 16 negative pairs at capacity 40 with 128-d
    descriptors, through the kernels (every launch count set to 0 just
-   before and read just after; all four kernels must launch) and through
+   before and read just after; all five kernels must launch) and through
    the serial numpy referee: each scenario's P/R for both with Wilson
    intervals and their outcome agreement, the launch counts and the wall;
    then the same pairs through the plain twins on the card, whose LC
@@ -162,6 +164,7 @@ SEED = 0
 CAPACITY = 40
 DESC_DIM = 768
 KERNEL_PAIRS = 32       # phase 2 batch, and the main path's chunk size
+ARUN_PAIRS = 64         # phase 2's arun_align batch: the benchmark grid's chunk
 QUALITY_PAIRS = 100
 ARITH_PAIRS = 16
 
@@ -314,19 +317,20 @@ def lc_quality_from_lists(ok, count, T_align, T_ij_all, min_assoc=4,
 def plain_path():
     """Route registration through the plain twins, on whatever device the
     tensors are: the reference the kernels are held against on the card.
-    Swaps the three names the registration path looks up for its kernels."""
+    Swaps the four names the registration path looks up for its kernels."""
     from roman_tpu_torch.align import clipper_solve, fused_register, registration
 
     saved = (registration.fused_register, clipper_solve.clipper_solve,
-             fused_register.round_refine)
+             fused_register.round_refine, registration.arun_align)
     registration.fused_register = fused_register.fused_register_plain
     clipper_solve.clipper_solve = clipper_solve.clipper_solve_plain
     fused_register.round_refine = fused_register.round_refine_plain
+    registration.arun_align = fused_register.arun_align_plain
     try:
         yield
     finally:
         (registration.fused_register, clipper_solve.clipper_solve,
-         fused_register.round_refine) = saved
+         fused_register.round_refine, registration.arun_align) = saved
 
 
 def reset_launches():
@@ -367,8 +371,8 @@ def kernel_pairs(auxs, n_pairs=KERNEL_PAIRS):
 def check_kernels(feats, auxs, cfg, ptxas=(), reps=10, plain_reps=3):
     """Each kernel and its twin on the same inputs, on the card. Returns
     one record per kernel (without launches). ptxas: the build's summary
-    lines, of which those of assoc_terms, build_affinity and round_refine
-    are repeated."""
+    lines, of which those of assoc_terms, build_affinity, round_refine and
+    arun_align are repeated."""
     import torch
 
     from roman_tpu_torch.align import clipper
@@ -381,7 +385,7 @@ def check_kernels(feats, auxs, cfg, ptxas=(), reps=10, plain_reps=3):
 
     for line in ptxas:
         if line.startswith(("assoc_terms_kernel", "build_affinity_kernel",
-                            "round_refine_kernel")):
+                            "round_refine_kernel", "arun_align_kernel")):
             print("ptxas: " + line, flush=True)
     pi, pj = kernel_pairs(auxs)
     dev = feats[0].centers.device
@@ -538,12 +542,62 @@ def check_kernels(feats, auxs, cfg, ptxas=(), reps=10, plain_reps=3):
                          plain_reps),
         bound=bound(nbytes(u, Fv, om, *r_k) + 2.0 * kk_sum,
                     f32_ops=2.0 * P * N + inv.refine_iters * 3.0 * kk_sum)))
+
+    # ---- arun_align (the finish's T_align) on a grid chunk: the fused
+    # path's selections of ARUN_PAIRS pairs ----
+    ai, aj = kernel_pairs(auxs, ARUN_PAIRS)
+    g1 = feats[0].map(lambda x: x[torch.as_tensor(ai, device=dev)].contiguous())
+    g2 = feats[1].map(lambda x: x[torch.as_tensor(aj, device=dev)].contiguous())
+    sel = fr.fused_register(g1, g2, inv, params)[0]
+    t_args = (g1.centers, g2.centers, sel)
+    T_k, T_p = fr.arun_align(*t_args), fr.arun_align_plain(*t_args)
+    torch.cuda.synchronize()
+    T_k, T_p = T_k.double().cpu(), T_p.double().cpu()
+    unique = torch.as_tensor(arun_unique(*t_args))
+    zero = sel.sum(dim=(1, 2)).cpu() == 0
+    R = T_k[:, :3, :3]
+    ortho = (R @ R.transpose(1, 2) - torch.eye(3, dtype=torch.float64)).abs().max().item()
+    det = (torch.linalg.det(R) - 1.0).abs().max().item()
+    err = (R[unique] - T_p[unique, :3, :3]).abs().max().item()
+    t_err = (T_k[unique] - T_p[unique]).abs().max().item()
+    print(f"arun_align, {ARUN_PAIRS} pairs ({int(unique.sum())} with a unique T, "
+          f"{int(zero.sum())} with no selection): max |dR| where unique {err:.3e} "
+          f"(tol 1e-4), max |dT| {t_err:.3e}; |R R^T - I| {ortho:.2e}, |det R - 1| "
+          f"{det:.2e} (tol 1e-5); identity where nothing is selected "
+          f"{bool(torch.equal(T_k[zero], T_p[zero]))}", flush=True)
+    require(unique.any() and err <= 1e-4 and ortho <= 1e-5 and det <= 1e-5
+            and torch.equal(T_k[zero], torch.eye(4, dtype=torch.float64).expand(
+                int(zero.sum()), 4, 4)), "arun_align disagrees with its twin")
+    records.append(dict(
+        name="arun_align", pairs=ARUN_PAIRS, max_abs_err=err,
+        ms=cuda_ms(lambda: fr.arun_align(*t_args), reps),
+        device_ms=device_ms(lambda: fr.arun_align(*t_args), reps, "arun_align_kernel"),
+        plain_ms=cuda_ms(lambda: fr.arun_align_plain(*t_args), plain_reps),
+        # each pair's selection and centers read once, its T written once
+        bound=bound(nbytes(*t_args) + ARUN_PAIRS * 16 * 4)))
     for r in records:
         print(f"{r['name']}: kernel {r['ms']:.4f} ms a call by CUDA events "
               f"({r['device_ms']:.4f} ms of device time), plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}) on {P} pairs",
+              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}) on {r.get('pairs', P)} pairs",
               flush=True)
     return records
+
+
+def arun_unique(c1, c2, sel):
+    """Pairs whose T_align is unique to f32 precision: count >= 3 and the
+    two smallest singular values of the centred H (float64, on the host)
+    apart by at least 5% of the largest."""
+    c1, c2, sel = (x.double().cpu().numpy() for x in (c1, c2, sel))
+    out = np.zeros(len(sel), bool)
+    for p in range(len(sel)):
+        a, b = np.nonzero(sel[p])
+        if len(a) < 3:
+            continue
+        q1 = c1[p, a] - c1[p, a].mean(0)
+        q2 = c2[p, b] - c2[p, b].mean(0)
+        s = np.linalg.svd(q1.T @ q2, compute_uv=False)
+        out[p] = s[1] - s[2] >= 0.05 * s[0]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1263,7 +1317,7 @@ def run_demo_sim(device, workdir):
     """params/demo_sim_device through the demo CLI: both robots mapped on
     the device backend, submap_align on the demo's three robot pairs, the
     sparse robust solve on the card and the ATE, with every launch count
-    set to 0 just before the call and read just after (all four kernels
+    set to 0 just before the call and read just after (all five kernels
     must launch), and the gates of tests/test_e2e_demo_device.py. Then the
     host backend on robot0's first HOST_WINDOW_FRAMES frames, against the
     device backend on the same window."""
@@ -1686,7 +1740,7 @@ def run_demo_bag(device, workdir):
     descriptor gate: one call a stage (--skip-* flags), so the
     kernels' launches are read around stage 2 alone. Gates: every artifact
     exists, each map's trajectory is the bag's odometry times the TF
-    extrinsic within 1e-6, all four kernels launch during stage 2."""
+    extrinsic within 1e-6, all five kernels launch during stage 2."""
     import yaml
 
     from roman_tpu_torch.map.roman_map import load_roman_map
@@ -1902,9 +1956,9 @@ def run_viz_clis(workdir, params_dir):
 
 def register_breakdown(reg, segs, reps=16):
     """Where a register call's time goes, on the first pair: packing the
-    two object lists into features, register_clipper (the four launches
-    and the transform), the selection's copy to the host; and the card's
-    busy time in a call from torch.profiler."""
+    two object lists into features, register_clipper (the fused path's four
+    launches and the transform's), the selection's copy to the host; and
+    the card's busy time in a call from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2202,7 +2256,7 @@ ADV_DESC_DIM = 128
 def run_adversarial(device):
     """Phase 16: the eight nuisance scenarios through the kernels and
     through the serial numpy referee, every launch count set to 0 just
-    before and read just after (all four kernels must launch); then the
+    before and read just after (all five kernels must launch); then the
     same pairs through the plain twins on the card, whose LC decisions
     must equal the kernels' on every pair."""
     import torch
@@ -2306,8 +2360,10 @@ def main() -> int:
     adversarial = run_adversarial(dev)
     print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    sources = {"clipper_solve": "roman_tpu_torch/csrc/clipper_solve.cu"}
-    replaces = {"clipper_solve": "roman_tpu/align/clipper_pallas.py:50"}
+    sources = {"clipper_solve": "roman_tpu_torch/csrc/clipper_solve.cu",
+               "arun_align": "roman_tpu_torch/csrc/arun_align.cu"}
+    replaces = {"clipper_solve": "roman_tpu/align/clipper_pallas.py:50",
+                "arun_align": "roman_tpu/ops/arun.py:54"}
     line = {"kernels": [dict(
         name=r["name"], route="cuda",
         source=sources.get(r["name"], "roman_tpu_torch/csrc/fused_register.cu"),

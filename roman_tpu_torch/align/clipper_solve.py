@@ -72,6 +72,16 @@ def compact_words(N: int, C: int) -> int:
     return (head + 31) // 32 * 32 + (N * Wp // 8 + 31) // 32 * 32
 
 
+@functools.lru_cache(maxsize=None)
+def device_noise(R: int, N: int, device: torch.device) -> torch.Tensor:
+    """restart_noise(R, N) on `device`, one tensor for each (R, N, device):
+    the first use uploads it (through to_device, one wait), every later
+    launch reads the same tensor with no copy from host memory. Read only:
+    the kernel and the twin never write it. An entry is R * N floats (6.4 KB
+    at R = 1 and capacity 40), one for each pair shape a process solves."""
+    return to_device(restart_noise(R, N), device)
+
+
 def clipper_solve_plain(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
                         params: ClipperSolveParams = ClipperSolveParams()):
     """Plain PyTorch twin of the kernel on any device.
@@ -102,7 +112,7 @@ def clipper_solve_plain(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
     for _ in range(params.warmup_iters):
         U = normalize((matvec(U) + U) * v)
     if R > 1:
-        noise = torch.as_tensor(restart_noise(R, N), device=dev)[None]
+        noise = device_noise(R, N, dev)[None]
         a = (torch.arange(R, dtype=torch.float32, device=dev) / R)[None, :, None]
         umax = torch.amax(U, dim=-1, keepdim=True)
         pert = normalize((U * (1.0 - a) + umax * a * noise) * v)
@@ -190,7 +200,7 @@ def clipper_solve(M: torch.Tensor, valid: torch.Tensor, n: int, m: int,
         raise ValueError(f"n_restarts must be in [1, {MAX_RESTARTS}], got {R}")
     if dev.type == "cuda":  # a card's limit; other devices (meta) have none
         check_solve_shape(n, m, R, P, dev)
-    noise = to_device(restart_noise(R, N), dev)
+    noise = device_noise(R, N, dev)
     u = torch.empty((P, N), dtype=torch.float32, device=dev)
     d = torch.empty(P, dtype=torch.float32, device=dev)
     F = torch.empty(P, dtype=torch.float32, device=dev)

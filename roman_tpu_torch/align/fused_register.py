@@ -18,7 +18,9 @@ Each stage's wrapper launches its kernel (``csrc/fused_register.cu``) for
 CUDA tensors and runs its plain PyTorch twin only for CPU tensors.
 ``fused_register`` chains the wrappers; ``fused_register_plain`` chains
 the twins on any device, which is what the kernels are held against on
-the card.
+the card. ``KERNELS`` lists every kernel a CLIPPER registration launches:
+these four, then the finish's T_align (``ops.arun.arun_align``,
+``csrc/arun_align.cu``); ``PLAIN`` lists their twins in the same order.
 
 The twins mirror the TPU kernel's own formulation, not
 ``invariants.affinity``: per-association scores enter as half-logs added
@@ -43,6 +45,7 @@ from roman_tpu_torch.align.clipper_solve import (check_solve_shape, clipper_solv
                                                  clipper_solve_plain)
 from roman_tpu_torch.align.invariants import SubmapFeatures
 from roman_tpu_torch.kernels import build
+from roman_tpu_torch.ops.arun import arun_align, arun_align_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -371,9 +374,9 @@ def round_refine(M, u, F, omega, n: int, m: int, inv: FusedInvariantStatics):
 
 round_refine.launches = 0
 
-KERNELS = (assoc_terms, build_affinity, clipper_solve, round_refine)
+KERNELS = (assoc_terms, build_affinity, clipper_solve, round_refine, arun_align)
 PLAIN = (assoc_terms_plain, build_affinity_plain, clipper_solve_plain,
-         round_refine_plain)
+         round_refine_plain, arun_align_plain)
 
 
 def check_shape(n: int, m: int, P: int, n_restarts: int, device) -> None:
@@ -435,7 +438,7 @@ def _fused(f1: SubmapFeatures, f2: SubmapFeatures, inv: FusedInvariantStatics,
     c1, c2 = flat(f1.centers, (n, 3)), flat(f2.centers, (m, 3))
     r1, r2 = flat(f1.ratio_feats, (n, Fdim)), flat(f2.ratio_feats, (m, Fdim))
     d1, d2 = flat(f1.descriptors, (n, Ddim)), flat(f2.descriptors, (m, Ddim))
-    terms, affinity, solve, rounding = stages
+    terms, affinity, solve, rounding = stages[:4]  # the fifth, T_align, is the finish's
     hl, nz, single, vflat = terms(r1, d1, r2, d2, flat(valid, (n, m)), inv)
     M = affinity(c1, c2, hl, nz, single, vflat, inv)
     u, _, F, omega = solve(M, vflat, n, m, params)

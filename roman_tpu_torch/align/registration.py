@@ -32,7 +32,7 @@ from roman_tpu_torch.align import invariants
 from roman_tpu_torch.align.fused_register import (FusedInvariantStatics,
                                                   fused_register)
 from roman_tpu_torch.align.invariants import ROMANInvariantParams, SubmapFeatures
-from roman_tpu_torch.ops.arun import arun
+from roman_tpu_torch.ops.arun import arun, arun_align
 from roman_tpu_torch.ops.se3 import T_to_xyzrpy
 
 # methods sharing the ROMAN invariant machinery, and which feature blocks
@@ -150,13 +150,10 @@ def build_features(centers, valid, cfg: RegistrationConfig, pca_attrs=None,
 
 def _t_align_from_selection(f1: SubmapFeatures, f2: SubmapFeatures,
                             sel: torch.Tensor) -> torch.Tensor:
-    """Batched Arun over selected center correspondences. sel (..., n, m)."""
-    n, m = sel.shape[-2], sel.shape[-1]
-    batch = sel.shape[:-2]
-    pts1 = f1.centers[..., :, None, :].expand(batch + (n, m, 3)).reshape(batch + (n * m, 3))
-    pts2 = f2.centers[..., None, :, :].expand(batch + (n, m, 3)).reshape(batch + (n * m, 3))
-    w = sel.reshape(batch + (n * m,)).to(pts1.dtype)
-    return arun(pts1, pts2, w)
+    """Batched Arun over selected center correspondences. sel (..., n, m).
+    On the card one launch of the arun_align kernel, with no wait; on the
+    CPU its plain twin (``ops.arun.arun_align_plain``)."""
+    return arun_align(f1.centers, f2.centers, sel)
 
 
 # Budget for re-solving the pairs whose homotopy did not converge within the
@@ -253,8 +250,9 @@ def solve_clipper(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConfi
 def finish_clipper(f1: SubmapFeatures, f2: SubmapFeatures, cfg: RegistrationConfig,
                    sel, count, u, F) -> RegistrationResult:
     """The other half of register_clipper, on solve_clipper's outputs: the
-    Arun T_align of the selection (on the card its SVD waits for the
-    device), ok and converged."""
+    Arun T_align of the selection, ok and converged. On the card it
+    launches the arun_align kernel and torch ops, and waits for none of
+    them."""
     with tracing.span("registration.finish"):
         T = _t_align_from_selection(f1, f2, sel)
         return RegistrationResult(sel=sel, count=count, T_align=T,

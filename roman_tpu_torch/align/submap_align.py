@@ -58,12 +58,13 @@ class PairGridRegistrar:
 
     Each chunk of pair indices gathers its features on the device and goes
     through the method's registration (roman_tpu/align/submap_align.py:
-    206-219): ``register_clipper`` for the ROMAN family (four kernel
-    launches per chunk on the card for geometric-mean fusion),
-    ``register_clipper_prune`` for clipper+prune (the same four launches,
-    with a pruned association mask), ``register_ransac`` for ransac (torch
-    code; its draws are made once per call for the whole pair list from
-    `seed`, and each pair takes its own row wherever it runs). For the
+    206-219): ``register_clipper`` for the ROMAN family (five kernel
+    launches per chunk on the card for geometric-mean fusion: the fused
+    path's four and Arun's), ``register_clipper_prune`` for clipper+prune
+    (the same five launches, with a pruned association mask),
+    ``register_ransac`` for ransac (torch code; its draws are made once
+    per call for the whole pair list from `seed`, and each pair takes its
+    own row wherever it runs). For the
     CLIPPER methods, pairs whose homotopy did not converge are then
     re-solved once, unsharded on the first device, at
     ``registration.rescue_solver`` budget and spliced back; ransac has no
@@ -94,10 +95,12 @@ class PairGridRegistrar:
                 cfg: RegistrationConfig, draws=None):
         """Launch the registration of a batch of pairs; returns a function
         that finishes it into a RegistrationResult. For the CLIPPER methods
-        the launch is solve_clipper (the kernels, no wait) and the finish
-        is Arun's T_align, whose SVD waits for the device: so a chunk
-        launches all of its shards before it finishes any, and the devices
-        of a mesh work at once. Ransac runs whole in the launch."""
+        the launch is solve_clipper and the finish is Arun's T_align (a
+        kernel), ok and converged: on the card neither waits for the
+        device, so the host gathers and launches the next chunk while the
+        card runs this one, and the first wait of a call is its results'
+        copy home. A chunk launches all of its shards before it finishes
+        any. Ransac runs whole in the launch."""
         if self.single_robot_lc:
             # remove segments whose ids appear in both submaps
             # (submap_align.py:108-115)

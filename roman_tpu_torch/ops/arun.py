@@ -6,13 +6,23 @@ recover the SE(3) T aligning set 2 to set 1 by SVD with the reflection
 fix, over any batch of pairs at once. The cores stay float32 with TF32
 off (``roman_tpu_torch.device``): bf16 rounding in these tiny products
 moved the demo's ATE by 0.22 m on the TPU (README "f32 geometric cores").
+
+``arun_align`` aligns each pair's selected center correspondences, the
+registration's T_align: for CUDA tensors one launch of the
+``csrc/arun_align.cu`` kernel, which waits for nothing and copies nothing
+to or from the host; for CPU tensors its plain twin, ``arun`` over the
+expanded centers.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
 from roman_tpu_torch import tracing
+from roman_tpu_torch.kernels import build
 from roman_tpu_torch.ops.se3 import make_T
 
 _EPS = 1e-9
@@ -76,3 +86,52 @@ def umeyama_alignment(src: torch.Tensor, dst: torch.Tensor,
         s = torch.ones((), dtype=src.dtype, device=src.device)
     t = mu_dst - s * (R @ mu_src)
     return R, t, s
+
+
+def arun_align_plain(centers1: torch.Tensor, centers2: torch.Tensor,
+                     sel: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the arun_align kernel: arun over every association
+    (a, b) of centers1 (..., n, 3) and centers2 (..., m, 3), weighted by
+    sel (..., n, m). Returns T (..., 4, 4) aligning centers2 onto
+    centers1."""
+    n, m = sel.shape[-2], sel.shape[-1]
+    batch = sel.shape[:-2]
+    pts1 = centers1[..., :, None, :].expand(batch + (n, m, 3)).reshape(batch + (n * m, 3))
+    pts2 = centers2[..., None, :, :].expand(batch + (n, m, 3)).reshape(batch + (n * m, 3))
+    w = sel.reshape(batch + (n * m,)).to(pts1.dtype)
+    return arun(pts1, pts2, w)
+
+
+def arun_align(centers1: torch.Tensor, centers2: torch.Tensor,
+               sel: torch.Tensor) -> torch.Tensor:
+    """T (..., 4, 4) aligning each pair's selected centers of map 2 onto
+    map 1's: the arun_align kernel for CUDA tensors (float32 centers), the
+    plain twin for CPU tensors (see arun_align_plain). The kernel
+    launches on the current stream and waits for nothing; while a profiler
+    records, it adds its pairs to counter "registration.arun_pairs"."""
+    if sel.device.type == "cpu":
+        return arun_align_plain(centers1, centers2, sel)
+    n, m = sel.shape[-2], sel.shape[-1]
+    batch = sel.shape[:-2]
+    P = math.prod(batch)
+    dev = sel.device
+    c1 = centers1.expand(batch + (n, 3)).reshape(P, n, 3).contiguous()
+    c2 = centers2.expand(batch + (m, 3)).reshape(P, m, 3).contiguous()
+    flags = sel.reshape(P, n, m).to(torch.bool).contiguous()
+    build.check_tensor("centers1", c1, (P, n, 3), torch.float32, dev)
+    build.check_tensor("centers2", c2, (P, m, 3), torch.float32, dev)
+    T = torch.empty((P, 4, 4), dtype=torch.float32, device=dev)
+    if P == 0:
+        return T.reshape(batch + (4, 4))
+    fn = build.function("arun_align", "arun_align_launch",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(flags.data_ptr(), c1.data_ptr(), c2.data_ptr(), T.data_ptr(), P, n, m,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check_launch("arun_align", err)
+    arun_align.launches += 1
+    tracing.count("registration.arun_pairs", P)
+    return T.reshape(batch + (4, 4))
+
+
+arun_align.launches = 0

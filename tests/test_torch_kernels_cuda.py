@@ -20,7 +20,12 @@ Tolerances:
   same inputs bitwise equal (so are two launches of assoc_terms and of
   build_affinity);
 - round_refine, the whole fused path and arithmetic-mean registration:
-  selections and counts equal.
+  selections and counts equal;
+- arun_align (the registration's T_align) against its twin's library
+  SVD: where T is unique, the rotation within 1e-4, T within 1e-4 near the
+  origin, and 240 m off (where f32 rounds t to about 1e-4) the selected
+  centers each T moves within 1e-4 of each other; a proper rotation at every
+  count; a pair's T bitwise the same at any batch size and position.
 The dense path (the benchmark's no-GPU cell: no descriptors, so nearly
 every row of M is live and clipper_solve reads a compact copy of M's
 nonzeros) is held to the same tolerances on its grid's first 64 pairs; the
@@ -43,7 +48,10 @@ from roman_tpu_torch.align.clipper_solve import (clipper_solve,
                                                  cluster_size)
 from roman_tpu_torch.align.registration import RegistrationConfig, rescue_solver
 from roman_tpu_torch.align.invariants import SubmapFeatures
+from roman_tpu_torch.ops import arun as arun_mod
 from roman_tpu_torch.sim import world
+
+from chip_smoke import arun_unique
 
 pytestmark = pytest.mark.cuda
 
@@ -503,7 +511,8 @@ def test_fused_register_matches_plain_on_edge_inputs(dev):
     k = fr.fused_register(f1, f2, INV, assoc_mask=mask)
     p = fr.fused_register_plain(f1, f2, INV, assoc_mask=mask)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(fr.KERNELS, before)] == [1, 1, 1, 1]
+    # the fused path's four; the fifth, arun_align, is the finish's
+    assert [k.launches - b for k, b in zip(fr.KERNELS, before)] == [1, 1, 1, 1, 0]
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     torch.testing.assert_close(k[2], p[2], rtol=0, atol=2e-3)
     assert k[1][3].item() == 0 and (k[2][3] == 0).all()
@@ -729,8 +738,9 @@ def test_arithmetic_mean_registration_reaches_round_refine(dev, monkeypatch):
 
 def test_clipper_prune_registration_matches_plain(dev, monkeypatch):
     """clipper+prune runs the fused path with no ratio and no cosine term
-    and a pruned association mask: all four kernels launch, and it selects
-    as the plain twins do."""
+    and a pruned association mask: all five kernels launch (the fused
+    path's four and the finish's arun_align), and it selects and aligns as
+    the plain twins do."""
     f1, f2 = _features(dev, P=8, seed=12)
     cfg = RegistrationConfig(method="clipper+prune", cos_min=0.5,
                              epsilon_shape=0.5)
@@ -742,6 +752,7 @@ def test_clipper_prune_registration_matches_plain(dev, monkeypatch):
     torch.cuda.synchronize()
     assert all(k.launches > b for k, b in zip(fr.KERNELS, before))
     monkeypatch.setattr(registration, "fused_register", fr.fused_register_plain)
+    monkeypatch.setattr(registration, "arun_align", fr.arun_align_plain)
     ref = registration.register_clipper_prune(f1, f2, cfg, **kw)
     assert torch.equal(out.sel, ref.sel) and torch.equal(out.count, ref.count)
     assert torch.equal(out.ok, ref.ok) and out.ok.any()
@@ -848,3 +859,124 @@ def test_rpgo_solve_is_bitwise_repeatable_on_the_card(dev, tmp_path):
     assert np.abs(pos[0] - pos[2]).max() <= 1e-2
     diag = [solver.solve_pose_graph(graph, device=d)[1] for d in ("cuda", "cpu")]
     assert diag[0] == diag[1] and diag[0]["n_lc_pcm_rejected"] >= 3
+
+
+# ---------------------------------------------------------------------------
+# arun_align: the registration's T_align
+# ---------------------------------------------------------------------------
+
+def _arun_inputs(dev, P, n, m, counts, offset=0.0, reflect=False, seed=0):
+    """(c1, c2, sel) of P pairs of n and m centers within 20 m of `offset`
+    (a scalar, or a (P, 3) array), pair p selecting counts[p % len(counts)]
+    one-to-one associations. Half the pairs' selected centers of map 2 are
+    map 1's under a rotation and a shift, with 2 cm of noise; with
+    `reflect`, every pair's are map 1's mirrored in z instead, so the
+    determinant of their H is negative."""
+    rng = np.random.default_rng(seed)
+    off = np.broadcast_to(np.asarray(offset, np.float64), (P, 3))[:, None, :]
+    c1 = rng.uniform(-20, 20, (P, n, 3)) + off
+    c2 = rng.uniform(-20, 20, (P, m, 3)) + off
+    sel = np.zeros((P, n, m), bool)
+    for p in range(P):
+        k = counts[p % len(counts)]
+        a, b = rng.permutation(n)[:k], rng.permutation(m)[:k]
+        sel[p, a, b] = True
+        if reflect:
+            c2[p, b] = (c1[p, a] - off[p]) * [1.0, 1.0, -1.0] + off[p]
+        elif p % 2:
+            q = rng.normal(size=4)
+            w, x, y, z = q / np.linalg.norm(q)
+            R = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                          [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                          [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+            c2[p, b] = (c1[p, a] - off[p]) @ R + off[p] + rng.uniform(-5, 5, 3)
+        c2[p, b] += rng.normal(scale=0.02, size=(k, 3))
+    return (torch.tensor(c1, dtype=torch.float32, device=dev),
+            torch.tensor(c2, dtype=torch.float32, device=dev),
+            torch.tensor(sel, device=dev))
+
+
+def _scene_selection(dev, P=64):
+    """(c1, c2, sel) of the first P pairs of the benchmark's grid, sel as
+    the card's fused path selects it."""
+    import json
+
+    from benchmark import world as bworld
+    from benchmark.entries import align_common
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "roman-demo-align.json")) as f:
+        config = json.load(f)
+    subs = bworld.make_scene(config)
+    pi, pj = (g[:P] for g in bworld.full_grid(subs))
+    f1, f2 = (align_common.features(s, dev).map(
+        lambda x, k=k: x[torch.as_tensor(k, device=dev)].contiguous())
+        for s, k in zip(subs, (pi, pj)))
+    sel = registration.solve_clipper(f1, f2, align_common.registration_config(config))[0]
+    return f1.centers, f2.centers, sel
+
+
+ARUN_CASES = {
+    # n != m, counts 0-3 and up to m, centers near the origin
+    "random_p64": lambda dev: _arun_inputs(dev, 64, 40, 31, [0, 1, 2, 3, 5, 17, 31], seed=1),
+    "offset240_p64": lambda dev: _arun_inputs(dev, 64, 40, 40, [0, 1, 2, 3, 40, 12],
+                                              offset=240.0, seed=2),
+    "reflection_p64": lambda dev: _arun_inputs(dev, 64, 23, 40, [3, 8, 23], reflect=True,
+                                               offset=-180.0, seed=3),
+    "one_pair": lambda dev: _arun_inputs(dev, 1, 7, 13, [6], seed=4),
+    "grid_p506": lambda dev: _arun_inputs(
+        dev, 506, 40, 40, list(range(41)),
+        offset=np.random.default_rng(5).uniform(-240, 240, (506, 3)), seed=5),
+    "scene_p64": _scene_selection,
+}
+
+
+@pytest.mark.parametrize("case", list(ARUN_CASES))
+def test_arun_align_matches_the_twin(dev, case):
+    """The kernel against the plain twin (arun over the expanded centers,
+    a library SVD) on the same f32 inputs on the card. Where T is unique
+    (chip_smoke.arun_unique), its rotation within 1e-4 of the twin's, and its translation
+    within 1e-4 where the centers lie within 40 m of the origin; where they
+    lie up to 240 m off, the twin's own f32 rounding of R times the lever
+    arm is of that order, so there both T move each selected center of map
+    2 to within 1e-4 of each other. At every count a proper rotation
+    (orthonormal within 1e-5, det +1), the bottom row 0 0 0 1, and the
+    identity where nothing is selected."""
+    c1, c2, sel = ARUN_CASES[case](dev)
+    before = arun_mod.arun_align.launches
+    T = arun_mod.arun_align(c1, c2, sel)
+    ref = arun_mod.arun_align_plain(c1, c2, sel)
+    torch.cuda.synchronize()
+    assert arun_mod.arun_align.launches == before + 1
+    T, ref = T.double().cpu(), ref.double().cpu()
+    count = sel.sum(dim=(-2, -1)).cpu()
+    R = T[:, :3, :3]
+    eye = torch.eye(3, dtype=torch.float64)
+    assert (R @ R.transpose(1, 2) - eye).abs().max() <= 1e-5
+    assert (torch.linalg.det(R) - 1.0).abs().max() <= 1e-5
+    assert torch.equal(T[:, 3], torch.tensor([0.0, 0.0, 0.0, 1.0]).expand(len(T), 4))
+    assert torch.equal(T[count == 0], torch.eye(4, dtype=torch.float64).expand(
+        int((count == 0).sum()), 4, 4))
+    ok = torch.as_tensor(arun_unique(c1, c2, sel))
+    assert ok.sum() >= (3 if len(T) > 1 else 1), int(ok.sum())
+    torch.testing.assert_close(R[ok], ref[ok, :3, :3], rtol=0, atol=1e-4)
+    if c1.abs().max() <= 40:
+        torch.testing.assert_close(T[ok], ref[ok], rtol=0, atol=1e-4)
+    p2 = c2.double().cpu()[ok]
+    moved = p2 @ T[ok, :3, :3].transpose(1, 2) + T[ok, None, :3, 3]
+    moved_ref = p2 @ ref[ok, :3, :3].transpose(1, 2) + ref[ok, None, :3, 3]
+    chosen = sel.cpu()[ok].any(dim=1)  # map 2's selected centers
+    assert (moved - moved_ref).abs().amax(dim=-1)[chosen].max() <= 1e-4
+
+
+def test_arun_align_does_not_depend_on_the_batch(dev):
+    """A pair's T is bitwise the same alone and at position 37 of a batch
+    of 64, and from launch to launch."""
+    c1, c2, sel = _arun_inputs(dev, 64, 40, 40, list(range(3, 41)), offset=120.0, seed=6)
+    batch = arun_mod.arun_align(c1, c2, sel)
+    again = arun_mod.arun_align(c1, c2, sel)
+    alone = arun_mod.arun_align(c1[37:38].contiguous(), c2[37:38].contiguous(),
+                                   sel[37:38].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(batch, again)
+    assert torch.equal(alone[0], batch[37])

@@ -93,6 +93,8 @@ def test_per_pair_classes_match_the_cpu(dev, n, m, D):
 
 
 def test_register_launches_all_four_kernels(dev):
+    """A register call of each class launches every kernel of the
+    registration once: the fused path's four and the finish's arun_align."""
     s1, s2 = pair(7, 13, 768, seed=5)
     for reg in classes(dev, 768):
         for k in fr.KERNELS:

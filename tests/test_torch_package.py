@@ -32,6 +32,7 @@ from roman_tpu_torch.align.clipper_solve import clipper_solve
 from roman_tpu_torch.align.registration import RegistrationConfig
 from roman_tpu_torch.align.submap_align import PairGridRegistrar, submap_align
 from roman_tpu_torch.kernels import build
+from roman_tpu_torch.ops.arun import arun_align
 from roman_tpu_torch.params.submap_align_params import (SubmapAlignInputOutput,
                                                         SubmapAlignParams)
 from roman_tpu_torch.rpgo import solver
@@ -226,13 +227,14 @@ def test_wrappers_launch_for_non_cpu_tensors_and_raise_on_a_failed_launch(
                          n, m, ClipperSolveParams())),
         (tfr.round_refine, (_meta(P, N, N, dtype=torch.bfloat16), _meta(P, N),
                             _meta(P), _meta(P), n, m, inv)),
+        (arun_align, (_meta(P, n, 3), _meta(P, m, 3), _meta(P, n, m, dtype=torch.bool))),
     ]
     for wrapper, args in cases:
         with pytest.raises(RuntimeError, match=f"{wrapper.__name__}: CUDA launch failed"):
             wrapper(*args)
     assert [c[1] for c in failing_launch] == [
         "assoc_terms_launch", "build_affinity_launch", "clipper_solve_launch",
-        "round_refine_launch"]
+        "round_refine_launch", "arun_align_launch"]
     assert all(n_args == n_types for _, _, n_args, n_types in failing_launch)
     assert [k.launches for k in tfr.KERNELS] == before
 

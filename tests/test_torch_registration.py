@@ -4,7 +4,9 @@ converged flags, and T_align within 1e-4 where a transform is defined
 (count >= 3)."""
 
 import dataclasses
+import types
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from roman_tpu.align.clipper import ClipperSolveParams as JaxSolve
 
 from roman_tpu_torch import convert
 from roman_tpu_torch.align import registration as treg
+from roman_tpu_torch.ops.arun import arun_align_plain
 
 from test_torch_invariants import _features
 
@@ -75,3 +78,41 @@ def test_solver_params_from_fields():
     solver = convert.solver_params_from_fields(
         **dataclasses.asdict(JaxSolve(outer_iters=5)))
     assert solver == treg.clipper_mod.ClipperSolveParams(outer_iters=5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_t_align_on_the_cpu_is_still_the_twin(seed):
+    """On the CPU the registration's T_align is the plain twin's, bitwise:
+    counts 0, 1, 2, 3 and up, a reflection (map 2's selected centers
+    mirrored), centers 240 m off, a batch of 6 and one unbatched pair. Where
+    T is unique (count >= 3, and none at 0) it is roman_tpu's: the rotation
+    within 1e-5, the translation within 1e-3 (f32 at a 240 m lever arm)."""
+    rng = np.random.default_rng(seed)
+    P, n, m = 6, 9, 7
+    c1 = rng.uniform(-20, 20, (P, n, 3)) + 240.0
+    c2 = rng.uniform(-20, 20, (P, m, 3)) + 240.0
+    sel = np.zeros((P, n, m), bool)
+    for p, k in enumerate([0, 1, 2, 3, 5, 7]):
+        a, b = rng.permutation(n)[:k], rng.permutation(m)[:k]
+        sel[p, a, b] = True
+        if p == 4:
+            c2[p, b] = c1[p, a] * [1.0, 1.0, -1.0]
+    f1, f2 = (treg.SubmapFeatures(centers=torch.tensor(c, dtype=torch.float32),
+                                  ratio_feats=torch.zeros(P, c.shape[1], 0),
+                                  descriptors=torch.zeros(P, c.shape[1], 0),
+                                  valid=torch.ones(P, c.shape[1], dtype=torch.bool))
+              for c in (c1, c2))
+    sel = torch.tensor(sel)
+    T = treg._t_align_from_selection(f1, f2, sel)
+    assert torch.equal(T, arun_align_plain(f1.centers, f2.centers, sel))
+    assert torch.equal(T[0], torch.eye(4))
+    one = (f1.map(lambda x: x[5]), f2.map(lambda x: x[5]), sel[5])
+    assert torch.equal(treg._t_align_from_selection(*one),
+                       arun_align_plain(one[0].centers, one[1].centers, one[2]))
+    ref = np.asarray(jreg._t_align_from_selection(
+        types.SimpleNamespace(centers=jnp.asarray(f1.centers.numpy())),
+        types.SimpleNamespace(centers=jnp.asarray(f2.centers.numpy())),
+        jnp.asarray(sel.numpy())))
+    unique = [0, 3, 4, 5]
+    np.testing.assert_allclose(T[unique, :3, :3].numpy(), ref[unique, :3, :3], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(T[unique].numpy(), ref[unique], rtol=0, atol=1e-3)

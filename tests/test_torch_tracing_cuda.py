@@ -12,7 +12,9 @@ register call each count as many waits (tracing.counter("sync")) as
 torch.cuda.set_sync_debug_mode("warn") reports synchronizing operations.
 In the profiler's raw events, each registration.solve span encloses the
 runtime launches of its four kernels, and the kernels start after it
-begins.
+begins. A 64-pair chunk of each grid cell's scene is solved and finished
+under sync debug mode "error" (no wait at all), and on the benchmark's
+scene a grid call waits 18 times and a register call 13.
 """
 
 import collections
@@ -141,3 +143,78 @@ def test_solve_spans_enclose_their_kernels_launches(dev, kind):
         inside[s].append(name)
     for s, names in inside.items():
         assert sorted(names) == sorted(KERNELS), names
+
+
+def _scene_cell(dev, workload):
+    """The benchmark's cell `workload` on the card, built (and warmed up) as
+    benchmark/run.py builds it."""
+    import json
+    import os
+
+    from benchmark import harness
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    _, config, traffic = harness.find_cell(bench, workload)
+    return harness.entry_module(traffic).Cell(config, traffic, 2**31 + 7, dev)
+
+
+def _scene_chunk(dev, workload, P=64):
+    """(f1, f2, cfg): the first P pairs of the cell's grid, as a chunk of
+    the pair engine gathers them."""
+    cell = _scene_cell(dev, workload)
+    rows = torch.arange(P, device=dev)
+    ii = torch.as_tensor(cell.pair_i, device=dev)[rows]
+    jj = torch.as_tensor(cell.pair_j, device=dev)[rows]
+    f1, f2 = cell.feats[0].map(lambda x: x[ii]), cell.feats[1].map(lambda x: x[jj])
+    return f1, f2, cell.registrar.cfg
+
+
+@pytest.mark.parametrize("workload", ["align_grid", "align_grid_nosem"])
+def test_a_chunk_launches_and_finishes_without_a_wait(dev, workload, monkeypatch):
+    """After a warm-up, solve_clipper and finish_clipper on a 64-pair chunk
+    of the cell's scene (a sparse M, and a dense one) synchronize nothing
+    under sync debug mode "error", count no wait, call no library SVD or
+    determinant, and count each finished pair's T from the kernel."""
+    from roman_tpu_torch.align import registration
+
+    f1, f2, cfg = _scene_chunk(dev, workload)
+    registration.finish_clipper(f1, f2, cfg, *registration.solve_clipper(f1, f2, cfg))
+    torch.cuda.synchronize()
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the finish called a library SVD or determinant")
+
+    for name in ("svd", "det"):
+        monkeypatch.setattr(torch.linalg, name, refused)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = registration.finish_clipper(f1, f2, cfg,
+                                              *registration.solve_clipper(f1, f2, cfg))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tracing.counter("sync") == 0
+    assert tracing.counter("registration.arun_pairs") == 64
+    assert res.T_align.shape == (64, 4, 4) and torch.isfinite(res.T_align).all()
+
+
+@pytest.mark.parametrize("workload,waits", [("align_grid", 18), ("align_register", 13)])
+def test_a_scene_call_counts_its_waits(dev, workload, waits):
+    """One call of the cell on the configuration's scene after its warm-up:
+    a grid call waits 18 times (the ids' and pair indices' uploads and each
+    result field's copy home, 10 in its pass and 8 in its rescue pass), a
+    register call 13 (twelve uploads and the selection's copy home), and
+    every finished pair's T comes from the kernel."""
+    cell = _scene_cell(dev, workload)
+    torch.cuda.synchronize()
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        cell.op(0)
+    torch.cuda.synchronize()
+    finished = len(cell.pair_i) + cell.rescued if workload == "align_grid" else 1
+    assert tracing.counter("sync") == waits
+    assert tracing.counter("registration.arun_pairs") == finished
