@@ -211,6 +211,7 @@ def run_cell(bench, wl, config, traffic, seed, seconds, trace, t_start,
     rest of a run, which then reports no metric."""
     import torch
 
+    from benchmark import trace as trace_mod
     from benchmark.reference import compare
 
     if device is None:
@@ -244,6 +245,10 @@ def run_cell(bench, wl, config, traffic, seed, seconds, trace, t_start,
     print(f"window: {len(w.outputs)} operations, {w.units} {cell.unit}, {w.elapsed:.3f} s; "
           f"operation ms min {ms[0]:.3f} median {ms[1]:.3f} p95 {ms[2]:.3f} max {ms[3]:.3f}; "
           f"{cell.describe()}", file=sys.stderr, flush=True)
+    if w.trace is not None:
+        print(f"traced stretch: {w.trace.n_ops} operations, "
+              f"{trace_mod.setup_calls(w.trace)} graph captures or module loads",
+              file=sys.stderr, flush=True)
     if on_card:
         print(f"card after the window: {nvidia_smi()}", file=sys.stderr, flush=True)
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0

@@ -1,6 +1,9 @@
 """Reading a torch.profiler trace of a stretch of operations: the device
 intervals, their union, the kernels that took most time and the longest
-idle gaps, labelled by what the host was doing.
+idle gaps, labelled by what the host was doing; and, by the name of a
+host event such as one of the program's spans, the device time of the
+work launched inside it (``launched_in``) and the runtime calls that
+capture a CUDA graph or load a module (``setup_calls``).
 
 Only the profiler's raw events are read (``kineto_results.events()``):
 building its FunctionEvent tree for a stretch of hundreds of calls takes
@@ -9,9 +12,14 @@ minutes.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 
 SPAN = "bench.op"   # the benchmark's span round each operation
+# runtime calls that capture or instantiate a CUDA graph, or load a module
+# (a kernel built or loaded): none belongs in a measured window
+SETUP_CALLS = ("cudaStreamBeginCapture", "cudaStreamEndCapture", "cudaGraphInstantiate",
+               "cuModuleLoad", "cuLibraryLoad", "nvrtcCompileProgram")
 
 
 @dataclasses.dataclass
@@ -22,6 +30,11 @@ class Trace:
     kernels: int             # device kernel events (no copies or sets)
     device_ops: list         # [(name, seconds)] by summed device time
     idle_gaps: list          # [(host activity, seconds)] longest first
+    # the stretch's host events [(start ns, end ns, name)], and its device
+    # intervals [(start ns, end ns, start ns of the host call that launched
+    # them, None where the trace holds no such call)], for launched_in
+    host: list = dataclasses.field(default_factory=list, repr=False)
+    launched: list = dataclasses.field(default_factory=list, repr=False)
 
 
 def _union(intervals) -> float:
@@ -75,6 +88,43 @@ def read(prof, top: int = 10) -> Trace:
         label = min(running, key=lambda h: h[1] - h[0])[2] if running else "host outside any event"
         idle.append((label, (e - s) / 1e9))
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    # a device event's launch, matched by the profiler's correlation id (a
+    # CUDA graph's kernels carry the id of the graph's launch)
+    launch = {e.correlation_id(): e.start_ns() for e in events
+              if e.device_type() == DeviceType.CPU and e.correlation_id()
+              and e.name().startswith(("cuda", "cu"))}
+    launched = [(e.start_ns(), e.start_ns() + e.duration_ns(), launch.get(e.correlation_id()))
+                for e in events if e.device_type() == DeviceType.CUDA and e.name() != SPAN]
     return Trace(window_s=(t1 - t0) / 1e9, busy_s=_union([(s, e) for s, e, _ in dev]) / 1e9,
                  n_ops=len(spans), kernels=kernels,
-                 device_ops=[(name[:120], ns / 1e9) for name, ns in ops], idle_gaps=idle)
+                 device_ops=[(name[:120], ns / 1e9) for name, ns in ops], idle_gaps=idle,
+                 host=host, launched=launched)
+
+
+def launched_in(trace: Trace, name: str):
+    """(number of host events named `name`, seconds): the union of the
+    device intervals of the work (kernels, copies, sets) launched while one
+    of them ran, such as one of the program's spans (an op-scope event of
+    the profiler's trace); (0, 0.0) where the stretch holds none."""
+    calls = sorted((s, e) for s, e, n in trace.host if n == name)
+    merged = []  # nested or overlapping calls as one interval
+    for s, e in calls:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    starts = [s for s, _ in merged]
+    mine = []
+    for s, e, t in trace.launched:
+        if t is None:
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= merged[i][1]:
+            mine.append((s, e))
+    return len(calls), _union(mine) / 1e9
+
+
+def setup_calls(trace: Trace) -> int:
+    """The stretch's runtime calls that capture or instantiate a CUDA graph
+    or load a module (SETUP_CALLS)."""
+    return sum(1 for *_, n in trace.host if n.startswith(SETUP_CALLS))
