@@ -1616,6 +1616,9 @@ def run_perception_bench(device, repeats=3):
             and b16["emb_cos_mean"] >= COS_BF16 and b16["fd_cos"] >= FD_COS_BF16,
             "the bf16 front end strays from the f32 one")
 
+    # a side check that the crops run and stay finite; the benchmark's cell
+    # frontend_clip measures CLIP ViT-L/14 through MapRunner.run and holds
+    # its embeddings against benchmark/reference/clip_f32.py
     cp = perception_params(semantics="clip", batch_frames=CLIP_FRAMES)
     fe = PerceptionFrontend(cp, cam, device=device,
                             clip_cfg=CLIP_CFG or clip_mod.CLIP_VIT_L14)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from roman_tpu_torch import tracing
 from roman_tpu_torch.data.camera import CameraParams, depth_image_to_points
 from roman_tpu_torch.device import resolve_device
 from roman_tpu_torch.map.observation import Observation
@@ -73,6 +74,11 @@ class PerceptionFrontend:
     ignore/keep label boxes -> triangle ignore regions -> area bounds /
     edge filter -> erosion-gated depth lifting -> plane filter ->
     per-mask semantics (mean-DINO or CLIP bbox crop).
+
+    With CLIP semantics the crops are encoded after the filters, in a
+    stage of their own (clip_stage: span ``perception.clip``, counters
+    ``perception.clip_crops``, the slots encoded, and
+    ``perception.clip_kept``, the slots kept, while a profiler records).
 
     Weights are state dicts of the port's modules (the upstream loaders of
     ``dinov2``, ``clip`` and ``fastsam``, or ``roman_tpu_torch.convert`` from
@@ -191,7 +197,8 @@ class PerceptionFrontend:
 
     def semantics(self, imgs_p: torch.Tensor, masks_r: torch.Tensor):
         """(embeddings (B, K, D), frame descriptors (B, D_vit), patch tokens
-        (B, gh, gw, D_vit) float32) on the rotated image."""
+        (B, gh, gw, D_vit) float32) on the rotated image. With CLIP
+        semantics the embeddings are None here: clip_stage makes them."""
         p = self.params
         B, _, Hr, Wr = imgs_p.shape
         K = masks_r.shape[1]
@@ -202,8 +209,7 @@ class PerceptionFrontend:
         _, patches = self.vit_model(vit_in)
         patches = patches.float()
         if self.clip_model is not None:
-            emb = clip_bbox_embeddings(imgs_p, _mask_bboxes(masks_r), self.clip_model,
-                                       out_size=self.clip_cfg.img_size)
+            emb = None  # the CLIP stage, after the filters (program)
         else:
             # mean per-pixel DINO embedding (fastsam_wrapper.py:407-414) as
             # mask-weighted patch pooling: each patch token weighted by the
@@ -282,8 +288,9 @@ class PerceptionFrontend:
 
     def nets(self, images: torch.Tensor):
         """The nets' half of the program: rotation, segmentation, proposals
-        and masks, the ViT, the embeddings and frame descriptors. -> (rotated
-        images, masks_r, keep, anchors, embeddings, frame descriptors)."""
+        and masks, the ViT, the embeddings (None with CLIP semantics) and
+        frame descriptors. -> (rotated images, masks_r, keep, anchors,
+        embeddings, frame descriptors)."""
         # segmentation, YOLO and semantics run on the rotated image; masks
         # are un-rotated before lifting (fastsam_wrapper.py:420-438)
         imgs_p = rotate_images(images, self.params.rotate_img)
@@ -298,18 +305,13 @@ class PerceptionFrontend:
         PerceptionOutput fields (masks downsampled by
         mask_downsample_factor) and the anchor of each proposal.
 
-        On a CUDA device the nets' half replays a CUDA graph captured on the
-        first batch of each shape (_NetGraph: the same kernels, launched by
-        the graph instead of one by one from Python); graph=False launches
-        them eagerly, the graph's referee."""
+        On a CUDA device the nets' half, and the CLIP stage, each replay a
+        CUDA graph captured on the first batch of each shape (_Graph: the
+        same kernels, launched by the graph instead of one by one from
+        Python); graph=False launches them eagerly, the graphs' referee."""
         p = self.params
-        if graph and self.device.type == "cuda":
-            key = tuple(images.shape)
-            if key not in self._graphs:
-                self._graphs[key] = _NetGraph(self, images.shape)
-            imgs_p, masks_r, ok, anchors, emb, fdesc = self._graphs[key](images)
-        else:
-            imgs_p, masks_r, ok, anchors, emb, fdesc = self.nets(images)
+        imgs_p, masks_r, ok, anchors, emb, fdesc = self._replay(
+            tuple(images.shape), self.nets, graph, images)
         if self.run_yolo:
             ok = self.label_filter(imgs_p, masks_r, ok)
         rot = p.rotate_img
@@ -324,9 +326,33 @@ class PerceptionFrontend:
         a, b, c = p.plane_filter_params
         plane = (e[..., 2] > a) & (e[..., 1] > b) & (e[..., 0] < c)
         ok = ok & ~plane & (pts_v.sum(dim=-1) > 0)
+        if self.clip_model is not None:
+            # CLIP crop semantics after the filters, where upstream embeds
+            # the masks it kept (fastsam_wrapper.py:393-406); every slot is
+            # encoded, at a fixed shape
+            with tracing.span("perception.clip"):
+                emb = self._replay(("clip",) + tuple(masks_r.shape), self.clip_stage, graph,
+                                   imgs_p, masks_r)
+            tracing.count("perception.clip_crops", ok.numel())
+            tracing.count_device("perception.clip_kept", ok)
         f = p.mask_downsample_factor
         return dict(masks=masks[:, :, ::f, ::f], valid=ok, points=pts, points_valid=pts_v,
                     embeddings=emb, frame_descriptors=fdesc, anchors=anchors)
+
+    def clip_stage(self, imgs_p: torch.Tensor, masks_r: torch.Tensor) -> torch.Tensor:
+        """Unit CLIP embeddings (B, K, D) of every mask's box crop on the
+        rotated images (clip_bbox_embeddings)."""
+        return clip_bbox_embeddings(imgs_p, _mask_bboxes(masks_r), self.clip_model,
+                                    out_size=self.clip_cfg.img_size)
+
+    def _replay(self, key: tuple, fn, graph: bool, *inputs):
+        """fn(*inputs), on a CUDA device with graph by the CUDA graph of
+        `key`, captured on its first call."""
+        if not (graph and self.device.type == "cuda"):
+            return fn(*inputs)
+        if key not in self._graphs:
+            self._graphs[key] = _Graph(fn, inputs)
+        return self._graphs[key](*inputs)
 
     def inputs(self, images: np.ndarray, depths: np.ndarray):
         """Host frames -> the program's device inputs, rounded as roman_tpu's
@@ -367,31 +393,35 @@ class PerceptionFrontend:
         return all_obs
 
 
-class _NetGraph:
-    """PerceptionFrontend.nets for one input shape, captured as a CUDA graph
-    and replayed from a static input buffer: a batch of FastSAM-x and
+class _Graph:
+    """fn over device tensors of fixed shapes, captured as a CUDA graph and
+    replayed from static input buffers: a batch of FastSAM-x and
     DINOv2-base is ~3,000 small kernels, and issuing them one by one from
-    Python left the card idle about half the time. Outputs are cloned out
-    of the graph's buffers, which the next replay overwrites."""
+    Python left the card idle about half the time. Outputs (a tensor or a
+    tuple of tensors and Nones) are cloned out of the graph's buffers,
+    which the next replay overwrites."""
 
-    def __init__(self, fe: PerceptionFrontend, shape):
-        dev = fe.device
-        self.images = torch.zeros(shape, dtype=torch.float32, device=dev)
+    def __init__(self, fn, inputs):
+        dev = inputs[0].device
+        self.inputs = [torch.zeros(x.shape, dtype=x.dtype, device=dev) for x in inputs]
         # a first run on a side stream does the lazy initializations that
         # capture does not allow (torch.cuda.graphs' warmup)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            fe.nets(self.images)
+            fn(*self.inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            self.out = fe.nets(self.images)
+            self.out = fn(*self.inputs)
 
-    def __call__(self, images: torch.Tensor):
-        self.images.copy_(images)
+    def __call__(self, *inputs):
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x)
         self.graph.replay()
-        return tuple(t.clone() for t in self.out)
+        if isinstance(self.out, torch.Tensor):
+            return self.out.clone()
+        return tuple(None if t is None else t.clone() for t in self.out)
 
 
 def clip_bbox_embeddings(images: torch.Tensor, boxes: torch.Tensor, clip_model,

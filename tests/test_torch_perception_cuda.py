@@ -31,6 +31,7 @@ import torch
 
 from roman_tpu_torch.data.camera import CameraParams
 from roman_tpu_torch.params.fastsam_params import FastSAMParams
+from roman_tpu_torch.perception import clip
 from roman_tpu_torch.perception.agreement import front_end_agreement
 from roman_tpu_torch.perception.wrapper import SEG_ARCHS, VIT_ARCHS, PerceptionFrontend
 
@@ -93,6 +94,29 @@ def test_graph_replay_equals_the_eager_program(dev, size):
         for k, v in eager.items():
             assert torch.equal(got[k], v), k
     assert list(fe._graphs) == [tuple(img.shape)]
+
+
+@pytest.mark.parametrize("size", ["tiny", "full"])
+def test_the_clip_stage_replays_as_the_eager_program(dev, size):
+    """With CLIP semantics the crops' stage replays a CUDA graph of its
+    own after the nets' graph and the filters: the same outputs as the
+    eager program, bit for bit, from one graph of each. Full size is CLIP
+    ViT-L/14 on 2 x 64 crops."""
+    kw, _, H, W = SIZES[size]
+    params = FastSAMParams(max_masks_per_frame=64, max_points_per_mask=256, semantics="clip",
+                           **kw)
+    clip_cfg = (None if size == "full" else dataclasses.replace(
+        clip.CLIP_VIT_L14, width=64, depth=2, heads=4, img_size=56, proj_dim=64))
+    fe = PerceptionFrontend(params, CameraParams.simple(width=W, height=H), clip_cfg=clip_cfg,
+                            device=dev)
+    img, dep = fe.inputs(*_frames(2, H, W))
+    eager = fe.program(img, dep, graph=False)
+    assert eager["embeddings"].shape == (2, 64, fe.embedding_dim)
+    for _ in range(2):
+        got = fe.program(img, dep)
+        for k, v in eager.items():
+            assert torch.equal(got[k], v), k
+    assert list(fe._graphs) == [tuple(img.shape), ("clip", 2, 64, H, W)]
 
 
 def test_bf16_front_end_stays_near_f32_on_the_card(dev):
