@@ -13,8 +13,10 @@ pooling (:650-666).
 
 Everything up to the Observations runs as torch code on one device over a
 batch of frames with capacity-padded masks, with no host sync inside the
-batch. ``run_batch`` rounds its inputs as roman_tpu's does (images to
-uint8, depths through float16), so both packages lift the same points.
+batch but one with CLIP semantics (the count of the kept slots, whose
+crops alone are encoded). ``run_batch`` rounds its inputs as roman_tpu's
+does (images to uint8, depths through float16), so both packages lift the
+same points.
 """
 
 from __future__ import annotations
@@ -38,6 +40,12 @@ from roman_tpu_torch.perception import clip as clip_mod
 from roman_tpu_torch.perception import dinov2, fastsam
 from roman_tpu_torch.perception.frame_descriptor import frame_descriptor
 from roman_tpu_torch.perception.vit import ViT, init_vit_
+
+# crops the CLIP tower encodes at once: its CUDA graph's batch, replayed
+# once a chunk of the kept slots. On the H100 (PERF.md, section 6) smaller
+# chunks waste less on padding but run each crop slower: with every one of
+# 512 slots kept, 32 took 6.4% longer than one batch of 512, 128 took 2.0%
+CLIP_CHUNK = 128
 
 SEG_ARCHS = {"fastsam-x": fastsam.FASTSAM_X, "fastsam-s": fastsam.FASTSAM_S,
              "tiny": fastsam.TINY_TEST}
@@ -75,10 +83,12 @@ class PerceptionFrontend:
     edge filter -> erosion-gated depth lifting -> plane filter ->
     per-mask semantics (mean-DINO or CLIP bbox crop).
 
-    With CLIP semantics the crops are encoded after the filters, in a
-    stage of their own (clip_stage: span ``perception.clip``, counters
-    ``perception.clip_crops``, the slots encoded, and
-    ``perception.clip_kept``, the slots kept, while a profiler records).
+    With CLIP semantics the crops of the slots the filters kept are
+    encoded after the filters, in a stage of their own (clip_stage: span
+    ``perception.clip``; counters ``perception.clip_crops``, the slots
+    given to the stage, ``perception.clip_encoded``, the crops the tower
+    ran, chunks' padding included, and ``perception.clip_kept``, the slots
+    kept, while a profiler records). A dropped slot's embedding is 0.
 
     Weights are state dicts of the port's modules (the upstream loaders of
     ``dinov2``, ``clip`` and ``fastsam``, or ``roman_tpu_torch.convert`` from
@@ -305,10 +315,11 @@ class PerceptionFrontend:
         PerceptionOutput fields (masks downsampled by
         mask_downsample_factor) and the anchor of each proposal.
 
-        On a CUDA device the nets' half, and the CLIP stage, each replay a
-        CUDA graph captured on the first batch of each shape (_Graph: the
-        same kernels, launched by the graph instead of one by one from
-        Python); graph=False launches them eagerly, the graphs' referee."""
+        On a CUDA device the nets' half replays a CUDA graph captured on
+        the first batch of each shape, and the CLIP tower one of
+        CLIP_CHUNK crops, once a chunk of the kept slots (_Graph: the same
+        kernels, launched by the graph instead of one by one from Python);
+        graph=False launches them eagerly, the graphs' referee."""
         p = self.params
         imgs_p, masks_r, ok, anchors, emb, fdesc = self._replay(
             tuple(images.shape), self.nets, graph, images)
@@ -327,23 +338,50 @@ class PerceptionFrontend:
         plane = (e[..., 2] > a) & (e[..., 1] > b) & (e[..., 0] < c)
         ok = ok & ~plane & (pts_v.sum(dim=-1) > 0)
         if self.clip_model is not None:
-            # CLIP crop semantics after the filters, where upstream embeds
-            # the masks it kept (fastsam_wrapper.py:393-406); every slot is
-            # encoded, at a fixed shape
-            with tracing.span("perception.clip"):
-                emb = self._replay(("clip",) + tuple(masks_r.shape), self.clip_stage, graph,
-                                   imgs_p, masks_r)
-            tracing.count("perception.clip_crops", ok.numel())
-            tracing.count_device("perception.clip_kept", ok)
+            # CLIP crop semantics on the masks the filters kept, as upstream
+            # embeds them (fastsam_wrapper.py:393-406)
+            emb = self.clip_stage(imgs_p, masks_r, ok, graph)
         f = p.mask_downsample_factor
         return dict(masks=masks[:, :, ::f, ::f], valid=ok, points=pts, points_valid=pts_v,
                     embeddings=emb, frame_descriptors=fdesc, anchors=anchors)
 
-    def clip_stage(self, imgs_p: torch.Tensor, masks_r: torch.Tensor) -> torch.Tensor:
-        """Unit CLIP embeddings (B, K, D) of every mask's box crop on the
-        rotated images (clip_bbox_embeddings)."""
-        return clip_bbox_embeddings(imgs_p, _mask_bboxes(masks_r), self.clip_model,
-                                    out_size=self.clip_cfg.img_size)
+    def clip_stage(self, imgs_p: torch.Tensor, masks_r: torch.Tensor, ok: torch.Tensor,
+                   graph: bool = True) -> torch.Tensor:
+        """CLIP embeddings (B, K, D) of the box crops of masks_r (B, K, H,
+        W) on the rotated images (clip_bbox_embeddings): unit vectors at
+        the slots ok (B, K) keeps, 0 at the others. The kept slots' indices
+        are found first, outside the span: on the card the batch's one wait,
+        for their count."""
+        tracing.count_sync(ok.device)
+        kept = torch.nonzero(ok.flatten()).squeeze(1)
+        with tracing.span("perception.clip"):
+            emb = clip_bbox_embeddings(
+                imgs_p, _mask_bboxes(masks_r),
+                lambda crops: (self._encode_kept(crops, kept, graph), None),
+                out_size=self.clip_cfg.img_size)
+        tracing.count("perception.clip_crops", ok.numel())
+        tracing.count("perception.clip_encoded", -(-len(kept) // CLIP_CHUNK) * CLIP_CHUNK)
+        tracing.count_device("perception.clip_kept", ok)
+        return emb
+
+    def _encode_kept(self, crops: torch.Tensor, kept: torch.Tensor, graph: bool) -> torch.Tensor:
+        """The CLIP tower's class-token embeddings (N, D) of the rows
+        `kept` of crops (N, 3, S, S), 0 in the other rows. The tower runs
+        on chunks of CLIP_CHUNK rows, the last padded with its last row,
+        each chunk on the card a replay of one CUDA graph (eagerly the same
+        chunks, so both give the same bits); with no row kept it does not
+        run."""
+        out = crops.new_zeros(len(crops), self.embedding_dim)
+        key = ("clip", CLIP_CHUNK) + tuple(crops.shape[1:])
+        for s in range(0, len(kept), CLIP_CHUNK):
+            rows = kept[s:s + CLIP_CHUNK]
+            n = len(rows)
+            idx = torch.cat([rows, rows[-1:].expand(CLIP_CHUNK - n)])
+            out[rows] = self._replay(key, self._clip_tower, graph, crops[idx])[:n]
+        return out
+
+    def _clip_tower(self, crops: torch.Tensor) -> torch.Tensor:
+        return self.clip_model(crops)[0]
 
     def _replay(self, key: tuple, fn, graph: bool, *inputs):
         """fn(*inputs), on a CUDA device with graph by the CUDA graph of

@@ -547,7 +547,8 @@ def test_front_end_observations_and_one_frame_wrapper(frontends):
 def test_front_end_options_run_on_the_cpu(frontends):
     """Rotation, the YOLO label stand-in and CLIP crop semantics on the
     port's tiny front end: outputs in the camera frame, label filtering
-    only removes, CLIP embeddings of unit norm."""
+    only removes, CLIP embeddings of unit norm on the valid slots and 0 on
+    the others."""
     tfe = frontends["tfe"]
     images, depths = frontends["images"], frontends["depths"]
     cam = tfe.camera
@@ -565,8 +566,10 @@ def test_front_end_options_run_on_the_cpu(frontends):
                                    proj_dim=16, dtype=torch.float32)
     out = wrapper.PerceptionFrontend(FastSAMParams(**_fe_params(semantics="clip")), cam,
                                      clip_cfg=clip_cfg, device="cpu").run_batch(images, depths)
-    assert out.embeddings.shape == (2, 8, 16)
-    np.testing.assert_allclose(np.linalg.norm(out.embeddings, axis=-1), 1.0, atol=1e-5)
+    assert out.embeddings.shape == (2, 8, 16) and out.valid.any()
+    np.testing.assert_allclose(np.linalg.norm(out.embeddings[out.valid], axis=-1), 1.0,
+                               atol=1e-5)
+    assert not out.embeddings[~out.valid].any()
 
 
 def test_checkpoint_round_trip(tmp_path, frontends):

@@ -33,7 +33,8 @@ from roman_tpu_torch.data.camera import CameraParams
 from roman_tpu_torch.params.fastsam_params import FastSAMParams
 from roman_tpu_torch.perception import clip
 from roman_tpu_torch.perception.agreement import front_end_agreement
-from roman_tpu_torch.perception.wrapper import SEG_ARCHS, VIT_ARCHS, PerceptionFrontend
+from roman_tpu_torch.perception.wrapper import (CLIP_CHUNK, SEG_ARCHS, VIT_ARCHS,
+                                                 PerceptionFrontend)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,10 +99,13 @@ def test_graph_replay_equals_the_eager_program(dev, size):
 
 @pytest.mark.parametrize("size", ["tiny", "full"])
 def test_the_clip_stage_replays_as_the_eager_program(dev, size):
-    """With CLIP semantics the crops' stage replays a CUDA graph of its
-    own after the nets' graph and the filters: the same outputs as the
-    eager program, bit for bit, from one graph of each. Full size is CLIP
-    ViT-L/14 on 2 x 64 crops."""
+    """With CLIP semantics the tower replays one CUDA graph of CLIP_CHUNK
+    crops, once a chunk of the kept slots, after the nets' graph and the
+    filters: the same outputs as the eager program, which runs the same
+    chunks, bit for bit. Then the stage alone with a kept count past a
+    chunk's edge (one more than a chunk: a last chunk of one kept slot and
+    its padding), graph against eager. Full size is CLIP ViT-L/14 on 2 x
+    64 crops."""
     kw, _, H, W = SIZES[size]
     params = FastSAMParams(max_masks_per_frame=64, max_points_per_mask=256, semantics="clip",
                            **kw)
@@ -116,7 +120,21 @@ def test_the_clip_stage_replays_as_the_eager_program(dev, size):
         got = fe.program(img, dep)
         for k, v in eager.items():
             assert torch.equal(got[k], v), k
-    assert list(fe._graphs) == [tuple(img.shape), ("clip", 2, 64, H, W)]
+    n = CLIP_CHUNK // 64 + 1  # frames of 64 slots, more than a chunk and one
+    img, _ = fe.inputs(*_frames(n, H, W))
+    masks = torch.zeros((n, 64, H, W), dtype=torch.bool, device=dev)
+    for i in range(n * 64):
+        y, x = (7 * i) % (H - 24), (13 * i) % (W - 24)
+        masks[i // 64, i % 64, y:y + 8 + i % 16, x:x + 8 + i % 13] = True
+    ok = torch.zeros((n, 64), dtype=torch.bool, device=dev)
+    ok.view(-1)[torch.randperm(n * 64, generator=torch.Generator().manual_seed(1))
+                [:CLIP_CHUNK + 1].to(dev)] = True
+    with torch.no_grad():
+        want = fe.clip_stage(img, masks, ok, graph=False)
+        got = fe.clip_stage(img, masks, ok)
+    assert torch.equal(got, want) and not got[~ok].any()
+    S = fe.clip_cfg.img_size
+    assert list(fe._graphs) == [(2, 3, H, W), ("clip", CLIP_CHUNK, 3, S, S)]
 
 
 def test_bf16_front_end_stays_near_f32_on_the_card(dev):
